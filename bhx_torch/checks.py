@@ -1,0 +1,104 @@
+"""Each CUDA kernel held against its plain torch version on the card, on
+inputs the default frame gives it.  Used by ``chip_smoke.py`` and by the
+card-only tests (``tests/test_torch_gpu.py``).
+
+Tolerances, the same as the CPU tests' against the JAX reference:
+
+* march: at most 1% of rays differ by more than 1e-3 in any output row
+  (rays near the photon sphere are chaotic, so two float programs part
+  on a few of them);
+* composite: max |err| <= 1e-4;
+* sky: 99.5% quantile of |err| < 2e-3 and max < 0.2 (a star splat's edge
+  moves with the last bit of the escape direction).
+
+Each ``compare_*`` returns a dict with ``ok``, the error figures, and the
+kernel's and the plain version's milliseconds per call (CUDA events; the
+kernel averaged over ``reps`` calls after a warm-up call, the plain
+version timed once).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from bhx_torch.config import RenderConfig
+from bhx_torch.kernels import march as march_mod
+from bhx_torch.kernels import shade as shade_mod
+from bhx_torch.kernels import sky as sky_mod
+from bhx_torch.pipeline import final_level_retrace_mask
+from bhx_torch.scene import Scene
+from bhx_torch.tracer import first_march_batch, march_kwargs
+
+MARCH_ATOL = 1e-3
+MARCH_BAD_FRAC = 0.01
+COMPOSITE_ATOL = 1e-4
+SKY_Q995 = 2e-3
+SKY_MAX = 0.2
+
+
+def _timed(fn: Callable, reps: int = 1) -> Tuple[torch.Tensor, float]:
+    """(last result, ms per call) of ``reps`` calls, timed with CUDA events;
+    with ``reps > 1`` after one untimed call (the first timed call of a
+    kernel on the card reads up to 3x slower than the rest)."""
+    if reps > 1:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def last_level_batch(scene: Scene, cfg: RenderConfig):
+    """:func:`first_march_batch` of the ladder's final level, whose active
+    set is that level's re-trace mask: the largest march launch of a frame."""
+    lad = cfg.ladder_for_output()
+    w, h = lad.resolution(lad.levels - 1)
+    return first_march_batch(scene, cfg, w, h, active=final_level_retrace_mask(scene, cfg))
+
+
+def shade_params(scene: Scene) -> torch.Tensor:
+    rot, _ = scene.black_hole.disk_frame()
+    return shade_mod.pack_shade_params(scene.black_hole, rot, scene.time)
+
+
+def compare_march(rays, params, cfg: RenderConfig, reps: int = 1) -> Dict:
+    kw = march_kwargs(cfg)
+    got, ms = _timed(lambda: march_mod.march(rays, params, **kw), reps)
+    want, plain_ms = _timed(lambda: march_mod.march_torch(rays, params, **kw))
+    err = (got - want).abs()
+    bad = float((err > MARCH_ATOL).any(0).float().mean())
+    finite = bool(torch.isfinite(got).all())
+    return dict(n=rays.shape[1], active=int((rays[7] > 0.5).sum()), bad_frac=bad,
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                ok=finite and bad <= MARCH_BAD_FRAC, out=got)
+
+
+def compare_composite(slots, cam_dist, params, gain, cfg: RenderConfig,
+                      reps: int = 1) -> Dict:
+    kw = dict(show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift)
+    got, ms = _timed(lambda: shade_mod.composite(slots, cam_dist, params, gain, **kw),
+                     reps)
+    want, plain_ms = _timed(
+        lambda: shade_mod.composite_torch(slots, cam_dist, params, gain, **kw))
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    return dict(n=slots.shape[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ok=finite and err <= COMPOSITE_ATOL)
+
+
+def compare_sky(rows, cfg: RenderConfig, reps: int = 1) -> Dict:
+    got, ms = _timed(lambda: sky_mod.sky_rows(rows, cfg.show_sky), reps)
+    want, plain_ms = _timed(lambda: sky_mod.sky_rows_torch(rows, cfg.show_sky))
+    err = (got - want).abs().reshape(-1)
+    q995 = float(torch.quantile(err, 0.995))
+    finite = bool(torch.isfinite(got).all())
+    return dict(n=rows.shape[1], q995_abs_err=q995, max_abs_err=float(err.max()),
+                ms=ms, plain_ms=plain_ms,
+                ok=finite and q995 < SKY_Q995 and float(err.max()) < SKY_MAX)

@@ -1,0 +1,172 @@
+"""Scene state as tensor dataclasses (counterpart of ``bhx/scene.py``).
+
+Every leaf is a float32 tensor on one explicit device; ``to(device)``
+moves a whole scene.  The procedural main path never reads the baked
+disk/sky/LUT textures of ``bhx.Scene``, so they are not carried here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 constant vector on ``device``, copied there once (a host to
+    device copy synchronises the stream, so per-frame code must not make
+    one).  Shared between callers: never write to it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+class _TensorData:
+    """``to(device)`` for a dataclass whose fields are tensors or such
+    dataclasses."""
+
+    def to(self, device):
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), (torch.Tensor, _TensorData))
+        })
+
+
+@dataclasses.dataclass
+class Camera(_TensorData):
+    """Pinhole camera (reference src/scene/camera.rs); world-up (0, -1, 0)."""
+
+    position: torch.Tensor  # (3,)
+    forward: torch.Tensor  # (3,)
+    fov: torch.Tensor  # () radians
+
+    @staticmethod
+    def default(device=None) -> "Camera":
+        # Reference defaults: pos (0,0,-19), forward +z, fov 1 rad.
+        return Camera(
+            position=_f32([0.0, 0.0, -19.0], device),
+            forward=_f32([0.0, 0.0, 1.0], device),
+            fov=_f32(1.0, device),
+        )
+
+
+@dataclasses.dataclass
+class BlackHole(_TensorData):
+    """Black hole + accretion disk (reference src/scene/blackhole.rs:16-28)."""
+
+    position: torch.Tensor  # (3,)
+    mass: torch.Tensor  # ()
+    spin: torch.Tensor  # () dimensionless a/M (0 = Schwarzschild)
+    disk_rotation: torch.Tensor  # (3,) Euler angles
+    disk_inner: torch.Tensor  # ()
+    disk_outer: torch.Tensor  # ()
+    rotation_speed: torch.Tensor  # () disk texture angular speed
+    relativity_radius: torch.Tensor  # () geodesic-integration sphere radius
+    feather: torch.Tensor  # () sphere-boundary blend amount
+    horizon_radius: torch.Tensor  # () opaque-sphere draw radius
+
+    @staticmethod
+    def default(device=None) -> "BlackHole":
+        return BlackHole(
+            position=_f32([0.0, 0.0, 0.0], device),
+            mass=_f32(0.5, device),
+            spin=_f32(0.0, device),
+            disk_rotation=_f32([0.15, 0.0, 0.25], device),
+            disk_inner=_f32(2.0, device),
+            disk_outer=_f32(10.0, device),
+            rotation_speed=_f32(1.0, device),
+            relativity_radius=_f32(20.0, device),
+            feather=_f32(0.3, device),
+            horizon_radius=_f32(1.0, device),
+        )
+
+    def disk_frame(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rotation_matrix, disk_normal) from the Euler angles, as in
+        ``bhx.scene.BlackHole.disk_frame``: rot = Rz @ Ry @ Rx, up = the
+        rotated (0,-1,0), right = (0,0,1) x up, forward = right x up,
+        matrix columns [right, up, forward]."""
+        rx, ry, rz = self.disk_rotation.unbind()
+        cx, sx = torch.cos(rx), torch.sin(rx)
+        cy, sy = torch.cos(ry), torch.sin(ry)
+        cz, sz = torch.cos(rz), torch.sin(rz)
+        one, zero = torch.ones_like(rx), torch.zeros_like(rx)
+        mat_x = torch.stack([
+            torch.stack([one, zero, zero]),
+            torch.stack([zero, cx, -sx]),
+            torch.stack([zero, sx, cx]),
+        ])
+        mat_y = torch.stack([
+            torch.stack([cy, zero, sy]),
+            torch.stack([zero, one, zero]),
+            torch.stack([-sy, zero, cy]),
+        ])
+        mat_z = torch.stack([
+            torch.stack([cz, -sz, zero]),
+            torch.stack([sz, cz, zero]),
+            torch.stack([zero, zero, one]),
+        ])
+        rot = mat_z @ mat_y @ mat_x
+        up = rot @ const((0.0, -1.0, 0.0), rx.device)
+        up = up / torch.linalg.norm(up)
+        right = torch.linalg.cross(const((0.0, 0.0, 1.0), rx.device), up)
+        forward = torch.linalg.cross(right, up)
+        return torch.stack([right, up, forward], dim=1), up
+
+
+@dataclasses.dataclass
+class Scene(_TensorData):
+    """Camera, black hole, clock and the learnable 16x16x4 ``disk_gain``
+    grid (a multiplicative RGBA gain over the disk texture's uv square;
+    all-ones is the identity)."""
+
+    camera: Camera
+    black_hole: BlackHole
+    time: torch.Tensor  # () seconds, drives disk texture rotation
+    disk_gain: torch.Tensor  # (16, 16, 4)
+    meshes: Tuple = ()
+
+    def __post_init__(self):
+        if len(self.meshes):
+            raise NotImplementedError(
+                "meshes are not ported to bhx_torch yet (ROADMAP A12)"
+            )
+
+    @staticmethod
+    def default(device=None) -> "Scene":
+        return Scene(
+            camera=Camera.default(device),
+            black_hole=BlackHole.default(device),
+            time=_f32(0.0, device),
+            disk_gain=torch.ones((16, 16, 4), dtype=torch.float32, device=device),
+        )
+
+
+def scene_from_state(state: Mapping, device=None) -> Scene:
+    """Build a :class:`Scene` from the numpy dict that
+    ``bhx.scene.scene_to_state`` returns, so both packages render the same
+    scene.  The baked textures and materials in ``state`` are not used by
+    the procedural path and are ignored; a ``None`` gain becomes the
+    all-ones identity grid."""
+
+    def build(cls, sub):
+        return cls(**{
+            f.name: _f32(sub[f.name], device) for f in dataclasses.fields(cls)
+        })
+
+    gain = state.get("disk_gain")
+    if gain is None:
+        gain = np.ones((16, 16, 4), np.float32)
+    return Scene(
+        camera=build(Camera, state["camera"]),
+        black_hole=build(BlackHole, state["black_hole"]),
+        time=_f32(state["time"], device),
+        disk_gain=_f32(gain, device),
+        meshes=tuple(state.get("meshes", ())),
+    )

@@ -1,0 +1,341 @@
+"""The ray tracer: straight and march phases over a flat ray batch
+(counterpart of the kernel path of ``bhx/tracer.py``).
+
+A trace runs ``straight -> [march -> straight] x 2``, then one last
+straight phase.  A straight phase tests rays outside the relativity
+sphere against it and advances entering rays to its boundary; a march
+phase runs the geodesic march kernel on the rays inside.  Nothing is
+shaded during the trace: the march records up to K=4 disk crossings per
+ray, and one batched shade + composite kernel runs at the end (the
+deferred record of ``march_mode="pallas"``).  The result is the sky-free
+record: 8 rows ``cr cg cb alpha amount dx dy dz``.
+
+Re-entry rounds run as masked launches whatever their live count: a phase
+with no live ray changes nothing, so no host sync is needed to skip it.
+
+State is a dict of (N,) rows; ``status`` is 0 = needs a straight phase,
+1 = marching, 2 = escaped, 3 = absorbed.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from bhx_torch.config import RenderConfig
+from bhx_torch.kernels.march import (
+    CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, _OUT_FIXED, march, pack_params,
+)
+from bhx_torch.kernels.shade import composite, pack_shade_params
+from bhx_torch.scene import Camera, Scene, const
+
+DEFAULT_ROUNDS = 2
+# "No intersection" distance and the reference's t_min (ray.wgsl:492-493).
+MISS_T = 1e8
+T_MIN = 1e-8
+
+
+def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    return torch.sqrt((x * x).sum(-1, keepdim=keepdim))
+
+
+def camera_rays(camera: Camera, width: int, height: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel ray origins and directions, (H, W, 3) each (reference
+    create_ray, ray.wgsl:269-285): NDC scale 2 / (min(W, H) - 1) about the
+    image center, camera basis from world-up (0, -1, 0)."""
+    dev = camera.position.device
+    inc = 2.0 / (min(width, height) - 1)
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) - (width - 1) / 2.0) * inc
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) - (height - 1) / 2.0) * inc
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+
+    fwd = camera.forward / _norm(camera.forward)
+    right = torch.linalg.cross(fwd, const((0.0, -1.0, 0.0), dev))
+    right = right / _norm(right)
+    up = torch.linalg.cross(fwd, right)
+    up = up / _norm(up)
+    fov_factor = 1.0 / torch.tan(camera.fov / 2.0)
+
+    d = px[..., None] * right + py[..., None] * up + fov_factor * fwd
+    d = d / _norm(d, keepdim=True)
+    return camera.position.expand(d.shape), d
+
+
+def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
+    """Rows state of a fresh batch (``bhx.tracer._init_state`` with
+    ``deferred=True``, without the mesh fields)."""
+    n = origins.shape[0]
+    o = origins.to(torch.float32)
+    d = directions.to(torch.float32)
+    zeros = o.new_zeros((n,))
+    false = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    izeros = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    return dict(
+        px=o[:, 0], py=o[:, 1], pz=o[:, 2],
+        dx=d[:, 0], dy=d[:, 1], dz=d[:, 2],
+        ox=d[:, 0], oy=d[:, 1], oz=d[:, 2],  # original directions (feather)
+        hit=false, status=izeros, march_steps=izeros, entered=false,
+        h=zeros, closest=zeros,
+        # K crossing slots of CROSS_FIELDS rows each, in crossing order.
+        slots=o.new_zeros((MAX_CROSSINGS * CROSS_FIELDS, n)),
+        count=zeros,
+        horizon=false,
+        # True (uncapped) crossing count; its excess over ``count``
+        # measures the crossings the K slots dropped.
+        true_count=zeros,
+        # Running transmission upper bound of the march's early exit.
+        amount_ub=o.new_ones((n,)),
+    )
+
+
+def _merge_slots(slots_a, count_a, slots_b, count_b):
+    """Append slot list b after a's entries: merged[i] <- b[i - count_a]."""
+    cf = CROSS_FIELDS
+    merged = list(slots_a.unbind(0))
+    for i in range(MAX_CROSSINGS):
+        keep = (count_a > float(i)) | (slots_a[i * cf + 6] > 0.5)
+        sels = [count_a == float(i - j) for j in range(i + 1)]
+        for f in range(cf):
+            take = torch.zeros_like(slots_b[f])
+            for j in range(i + 1):
+                take = torch.where(sels[j], slots_b[j * cf + f], take)
+            merged[i * cf + f] = torch.where(keep, merged[i * cf + f], take)
+    return (torch.stack(merged),
+            torch.clamp(count_a + count_b, 0.0, float(MAX_CROSSINGS)))
+
+
+def _straight_phase(state: Dict, black_hole, cfg: RenderConfig) -> Dict:
+    """Straight-ray test of status-0 rays against the relativity sphere
+    (reference outside branch, ray.wgsl:554-569, without meshes): a hit
+    advances the ray to the boundary and starts its march; a miss escapes."""
+    bh = black_hole
+    mask = state["status"] == 0
+    px, py, pz = state["px"], state["py"], state["pz"]
+    dx, dy, dz = state["dx"], state["dy"], state["dz"]
+
+    ocx = px - bh.position[0]
+    ocy = py - bh.position[1]
+    ocz = pz - bh.position[2]
+    r_sphere = bh.relativity_radius
+    a_q = dx * dx + dy * dy + dz * dz
+    b_q = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    c_q = oc2 - r_sphere * r_sphere
+    disc = b_q * b_q - 4.0 * a_q * c_q
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1 = (-b_q - sq) / (2.0 * a_q)
+    t2 = (-b_q + sq) / (2.0 * a_q)
+    real = disc > 0.0
+    # Nearest root in (T_MIN, MISS_T) — reference hit_sphere semantics.
+    v1 = real & (t1 > T_MIN) & (t1 < MISS_T)
+    v2 = real & (t2 > T_MIN) & (t2 < MISS_T)
+    sphere_t = torch.where(v1, t1, torch.where(v2, t2, MISS_T))
+    inside = oc2 < r_sphere * r_sphere
+
+    enters = mask & (inside | v1 | v2)
+    escapes = mask & ~enters
+    adv_t = torch.where(enters & ~inside, sphere_t, 0.0)
+    npx = px + dx * adv_t
+    npy = py + dy * adv_t
+    npz = pz + dz * adv_t
+    nrx = npx - bh.position[0]
+    nry = npy - bh.position[1]
+    nrz = npz - bh.position[2]
+
+    state = dict(state)
+    state.update(
+        px=npx, py=npy, pz=npz,
+        status=torch.where(enters, 1, torch.where(escapes, 2, state["status"]))
+        .to(torch.int32),
+        entered=state["entered"] | enters,
+        h=torch.where(enters, cfg.step_size, state["h"]),
+        closest=torch.where(enters, torch.sqrt(nrx * nrx + nry * nry + nrz * nrz),
+                            state["closest"]),
+    )
+    return state
+
+
+def _march_inputs(state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rays (10, N), marching mask) for the march kernel."""
+    was = state["status"] == 1
+    rays = torch.stack([
+        state["px"], state["py"], state["pz"],
+        state["dx"], state["dy"], state["dz"],
+        state["h"], was.to(torch.float32), state["amount_ub"],
+        torch.zeros_like(state["px"]),  # steps already taken (one round)
+    ])
+    return rays, was
+
+
+def march_kwargs(cfg: RenderConfig) -> Dict:
+    """The march kernel's keyword arguments under ``cfg``."""
+    return dict(
+        max_iterations=cfg.max_iterations,
+        tex_opacity_min=0.7 if (cfg.show_disk_texture and cfg.show_disk) else 1.0,
+        show_disk=cfg.show_disk,
+    )
+
+
+def _march_phase(state: Dict, black_hole, params: torch.Tensor,
+                 cfg: RenderConfig, first_phase: bool) -> Dict:
+    """March the status-1 rays in one kernel launch and fold the result
+    into the state (``bhx.tracer._march_phase_pallas`` with one round)."""
+    bh = black_hole
+    rays, was = _march_inputs(state)
+    out = march(rays, params, **march_kwargs(cfg))
+    o = _OUT_FIXED
+    # Inactive lanes came back unchanged with zero counters and slots.
+    w_closest = torch.minimum(
+        torch.where(was, state["closest"], 1e9), out[o["closest"]]
+    )
+    w_dx, w_dy, w_dz = out[o["dx"]], out[o["dy"]], out[o["dz"]]
+    horizon_b = out[o["horizon"]] > 0.5
+    exited_b = out[o["exited"]] > 0.5
+
+    hit = state["hit"]
+    slots, count = state["slots"], state["count"]
+    if cfg.show_disk:
+        w_slots = out[OUT_FIXED:]
+        w_count = sum(w_slots[k * CROSS_FIELDS + 6] for k in range(MAX_CROSSINGS))
+        if first_phase:
+            slots, count = w_slots, w_count
+        else:
+            slots, count = _merge_slots(slots, count, w_slots, w_count)
+        hit = hit | (count > 0.5)
+    hit = hit | horizon_b
+    amount_ub = torch.where(horizon_b, 0.0, out[o["amount"]])
+
+    # Feather the exit direction toward the original one (ray.wgsl:543-553).
+    fw = bh.relativity_radius * bh.feather
+    fs = bh.relativity_radius - fw
+    lin = torch.clamp((w_closest - fs) / torch.clamp(fw, min=1e-6), 0.0, 1.0)
+    mix_amount = lin * lin
+    ndx = torch.where(exited_b, w_dx + (state["ox"] - w_dx) * mix_amount, w_dx)
+    ndy = torch.where(exited_b, w_dy + (state["oy"] - w_dy) * mix_amount, w_dy)
+    ndz = torch.where(exited_b, w_dz + (state["oz"] - w_dz) * mix_amount, w_dz)
+
+    absorbed = was & (horizon_b | (amount_ub < cfg.opacity_cutoff))
+    # Budget-capped rays (photon-sphere orbiters) escape with their current
+    # direction, like the reference's loop falling through (ray.wgsl:595).
+    over_budget = was & ~exited_b & ~absorbed
+    status = state["status"]
+    status = torch.where(exited_b & ~absorbed, 0, status)
+    status = torch.where(absorbed, 3, status)
+    status = torch.where(over_budget, 2, status).to(torch.int32)
+
+    state = dict(state)
+    state.update(
+        px=out[o["px"]], py=out[o["py"]], pz=out[o["pz"]],
+        dx=ndx, dy=ndy, dz=ndz,
+        h=out[o["h"]],
+        hit=hit, slots=slots, count=count,
+        horizon=state["horizon"] | horizon_b,
+        amount_ub=amount_ub,
+        closest=torch.where(was, w_closest, state["closest"]),
+        march_steps=state["march_steps"] + out[o["steps"]].to(torch.int32),
+        status=status,
+        true_count=state["true_count"] + out[o["count"]],
+    )
+    return state
+
+
+def _trace_phases(state: Dict, scene: Scene, cfg: RenderConfig,
+                  rounds: int) -> Dict:
+    bh = scene.black_hole
+    _, disk_normal = bh.disk_frame()
+    params = pack_params(bh, disk_normal, cfg)
+    for r in range(rounds):
+        state = _straight_phase(state, bh, cfg)
+        state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
+    return state
+
+
+def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
+                    cam_dist: torch.Tensor):
+    """One batched shade + composite of the recorded crossings; a ray
+    captured by the horizon keeps no sky transmission.  Returns the
+    (4, N) rows r, g, b, amount."""
+    bh = scene.black_hole
+    n = cam_dist.shape[0]
+    if cfg.show_disk:
+        rot_mat, _ = bh.disk_frame()
+        rgbt = composite(
+            state["slots"], cam_dist, pack_shade_params(bh, rot_mat, scene.time),
+            scene.disk_gain, show_texture=cfg.show_disk_texture,
+            show_redshift=cfg.show_redshift,
+        )
+    else:
+        rgbt = torch.cat([cam_dist.new_zeros((3, n)), cam_dist.new_ones((1, n))])
+    return torch.cat([
+        rgbt[:3], torch.where(state["horizon"], 0.0, rgbt[3]).unsqueeze(0)
+    ])
+
+
+def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
+                           scene: Scene, cfg: RenderConfig,
+                           rounds: int = DEFAULT_ROUNDS,
+                           active: torch.Tensor = None) -> torch.Tensor:
+    """Trace a flat (N, 3) batch of rays to the sky-free record, an (8, N)
+    tensor of rows ``cr cg cb alpha amount dx dy dz``.
+
+    ``active`` (optional bool (N,)): rays with False are dead lanes that
+    produce an escape record; the march kernel skips them."""
+    bh = scene.black_hole
+    state = _init_state(origins, directions)
+    if active is not None:
+        state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
+    cam_dist = _norm(origins - bh.position)
+
+    state = _trace_phases(state, scene, cfg, rounds)
+    # Rays that want a straight phase after the last march get one more;
+    # any that would re-enter again are treated as escapes.
+    state = _straight_phase(state, bh, cfg)
+    status = torch.where(state["status"] == 1, 2, state["status"])
+    state["status"] = status.to(torch.int32)
+
+    shaded = _shade_deferred(state, scene, cfg, cam_dist)
+    # Classification (reference ray.wgsl:583-595): final-color pixels
+    # composited something or marched at most few_iters_threshold steps;
+    # the other escapes carry (direction, alpha 0).
+    total_iters = state["march_steps"] + state["entered"].to(torch.int32)
+    alpha = state["hit"] | (total_iters <= cfg.few_iters_threshold)
+    return torch.cat([
+        shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
+        torch.stack([state["dx"], state["dy"], state["dz"]]),
+    ])
+
+
+def first_march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
+                      active: torch.Tensor = None):
+    """(rays (10, N), params, cam_dist (N,)) of the first march launch of a
+    (width, height) trace: the camera rays after the first straight phase,
+    with ``active`` (optional flat bool mask) as in
+    :func:`trace_rays_record_rows`.  Holds the kernel to its plain version
+    on inputs a frame gives it."""
+    bh = scene.black_hole
+    o, d = camera_rays(scene.camera, width, height)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    state = _init_state(o, d)
+    if active is not None:
+        state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
+    rays, _ = _march_inputs(_straight_phase(state, bh, cfg))
+    _, normal = bh.disk_frame()
+    return rays, pack_params(bh, normal, cfg), _norm(o - bh.position)
+
+
+def crossing_overflow_stats(scene: Scene, cfg: RenderConfig, width: int,
+                            height: int) -> Dict[str, torch.Tensor]:
+    """K-slot crossing-overflow diagnostic of a dense (width, height)
+    trace: the fraction of rays that dropped at least one disk crossing,
+    the dropped total and the largest true crossing count."""
+    o, d = camera_rays(scene.camera, width, height)
+    state = _trace_phases(_init_state(o.reshape(-1, 3), d.reshape(-1, 3)),
+                          scene, cfg, DEFAULT_ROUNDS)
+    dropped = torch.clamp(state["true_count"] - state["count"], min=0.0)
+    return dict(
+        overflow_frac=(dropped > 0.0).to(torch.float32).mean(),
+        dropped_total=dropped.sum(),
+        max_count=state["true_count"].max(),
+    )

@@ -1,0 +1,84 @@
+"""Card-only tests: each CUDA kernel of bhx_torch against its plain torch
+version on the card, and proof that CUDA tensors launch the kernels.
+Every test here is marked ``gpu`` and skips without a CUDA device.
+
+On a machine with a card (the root conftest.py imports jax, which such a
+machine need not have):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+import bhx_torch
+from bhx_torch import checks
+from bhx_torch.kernels import launch_counts
+from bhx_torch.kernels import march as tmarch
+from bhx_torch.kernels import shade as tshade
+from bhx_torch.kernels import sky as tsky
+from bhx_torch.tracer import first_march_batch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def frame():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return bhx_torch.Scene.default(torch.device("cuda")), bhx_torch.RenderConfig()
+
+
+def test_march_level0_matches_plain(frame):
+    scene, cfg = frame
+    rays, params, _ = first_march_batch(scene, cfg, *cfg.ladder_for_output().resolution(0))
+    r = checks.compare_march(rays, params, cfg)
+    assert r["ok"], {k: v for k, v in r.items() if k != "out"}
+
+
+def test_dense_trace_kernels_match_plain(frame):
+    scene, cfg = frame
+    rays, params, cam = first_march_batch(scene, cfg, 640, 361)
+    r = checks.compare_march(rays, params, cfg)
+    assert r["ok"], {k: v for k, v in r.items() if k != "out"}
+    c = checks.compare_composite(r["out"][tmarch.OUT_FIXED:], cam,
+                                 checks.shade_params(scene), scene.disk_gain, cfg)
+    assert c["ok"], c
+    record = bhx_torch.pipeline.trace_image_record_rows(scene, cfg, 640, 361)
+    s = checks.compare_sky(record.reshape(8, -1), cfg)
+    assert s["ok"], s
+
+
+def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch):
+    scene, cfg = frame
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((tmarch, "march_torch"), (tshade, "composite_torch"),
+                      (tsky, "sky_rows_torch")):
+        monkeypatch.setattr(mod, name, boom)
+    before = launch_counts()
+    img = bhx_torch.render(scene, cfg.replace(width=96, height=54, use_ladder=False))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert img.is_cuda and bool(torch.isfinite(img).all())
+    # Two march rounds, one composite, one sky pass.
+    assert after["march"] - before["march"] == 2
+    assert after["composite"] - before["composite"] == 1
+    assert after["sky"] - before["sky"] == 1
+
+
+def test_small_frame_matches_cpu(frame):
+    scene, _ = frame
+    cfg = bhx_torch.RenderConfig(
+        width=96, height=54, use_ladder=False, max_iterations=600,
+        bloom=bhx_torch.BloomConfig(enabled=False),
+        fxaa=bhx_torch.FxaaConfig(enabled=False), tonemap=False,
+    )
+    on_card = bhx_torch.render(scene, cfg).cpu()
+    on_cpu = bhx_torch.render(scene.to("cpu"), cfg)
+    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+    assert bad <= 0.02, bad
