@@ -1,16 +1,19 @@
 """bhx_torch — the bhx black-hole renderer on PyTorch and CUDA.
 
 A port of the JAX package ``bhx`` (its reference, which it never imports)
-to PyTorch, with the three TPU kernels of the default frame rewritten by
-hand in CUDA C++ for Hopper (``bhx_torch/csrc``):
+to PyTorch, with every TPU kernel of ``bhx`` rewritten by hand in CUDA C++
+for Hopper (``bhx_torch/csrc``):
 
   bhx_torch.config     static render configuration
   bhx_torch.scene      camera / black hole / disk_gain tensors
   bhx_torch.procedural hash-Perlin disk texel, blackbody tint, star sky
+  bhx_torch.kerr       Kerr Hamiltonian, null momentum, hand-written dH/dx
+  bhx_torch.integrate  the Cash-Karp tableau of the RK45 march
   bhx_torch.tracer     straight + march phases, deferred disk record
   bhx_torch.pipeline   adaptive ladder, sky pass, post chain, render()
   bhx_torch.post       bloom, mix, ACES, FXAA
-  bhx_torch.kernels    march / composite / sky kernels and plain versions
+  bhx_torch.kernels    march (Euler, RK45, Kerr) / composite / ingredients /
+                       sky kernels and their plain versions
   bhx_torch.bench      the 1918x1081 frame timed on the card
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors

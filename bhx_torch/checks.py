@@ -4,12 +4,13 @@ card-only tests (``tests/test_torch_gpu.py``).
 
 Tolerances, the same as the CPU tests' against the JAX reference:
 
-* march: at most 1% of rays differ by more than 1e-3 in any output row
-  (rays near the photon sphere are chaotic, so two float programs part
-  on a few of them);
-* composite: max |err| <= 1e-4;
-* sky: 99.5% quantile of |err| < 2e-3 and max < 0.2 (a star splat's edge
-  moves with the last bit of the escape direction).
+* march (every branch): at most 1% of rays differ by more than 1e-3 in
+  any output row (rays near the photon sphere are chaotic, so two float
+  programs part on a few of them);
+* composite and ingredients: max |err| <= 1e-4;
+* sky on rows and on an interleaved record: 99.5% quantile of |err| <
+  2e-3 and max < 0.2 (a star splat's edge moves with the last bit of the
+  escape direction).
 
 Each ``compare_*`` returns a dict with ``ok``, the error figures, and the
 kernel's and the plain version's milliseconds per call (CUDA events; the
@@ -80,6 +81,18 @@ def compare_march(rays, params, cfg: RenderConfig, reps: int = 1) -> Dict:
                 ok=finite and bad <= MARCH_BAD_FRAC, out=got)
 
 
+def compare_ingredients(slots, cam_dist, params, cfg: RenderConfig,
+                        reps: int = 1) -> Dict:
+    kw = dict(show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift)
+    got, ms = _timed(lambda: shade_mod.ingredients(slots, cam_dist, params, **kw), reps)
+    want, plain_ms = _timed(lambda: shade_mod.ingredients_torch(slots, cam_dist, params,
+                                                                **kw))
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    return dict(n=slots.shape[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ok=finite and err <= COMPOSITE_ATOL)
+
+
 def compare_composite(slots, cam_dist, params, gain, cfg: RenderConfig,
                       reps: int = 1) -> Dict:
     kw = dict(show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift)
@@ -93,12 +106,24 @@ def compare_composite(slots, cam_dist, params, gain, cfg: RenderConfig,
                 ok=finite and err <= COMPOSITE_ATOL)
 
 
-def compare_sky(rows, cfg: RenderConfig, reps: int = 1) -> Dict:
-    got, ms = _timed(lambda: sky_mod.sky_rows(rows, cfg.show_sky), reps)
-    want, plain_ms = _timed(lambda: sky_mod.sky_rows_torch(rows, cfg.show_sky))
+def _compare_sky(kernel: Callable, plain: Callable, rec, cfg: RenderConfig,
+                 reps: int) -> Dict:
+    got, ms = _timed(lambda: kernel(rec, cfg.show_sky), reps)
+    want, plain_ms = _timed(lambda: plain(rec, cfg.show_sky))
     err = (got - want).abs().reshape(-1)
     q995 = float(torch.quantile(err, 0.995))
     finite = bool(torch.isfinite(got).all())
-    return dict(n=rows.shape[1], q995_abs_err=q995, max_abs_err=float(err.max()),
+    return dict(n=want.numel() // 3, q995_abs_err=q995, max_abs_err=float(err.max()),
                 ms=ms, plain_ms=plain_ms,
                 ok=finite and q995 < SKY_Q995 and float(err.max()) < SKY_MAX)
+
+
+def compare_sky(rows, cfg: RenderConfig, reps: int = 1) -> Dict:
+    """The sky kernel on (8, N) record rows."""
+    return _compare_sky(sky_mod.sky_rows, sky_mod.sky_rows_torch, rows, cfg, reps)
+
+
+def compare_sky_finalize(record, cfg: RenderConfig, reps: int = 1) -> Dict:
+    """The sky kernel on an interleaved (..., 8) record."""
+    return _compare_sky(sky_mod.sky_finalize, sky_mod.sky_finalize_torch, record,
+                        cfg, reps)

@@ -8,7 +8,8 @@ The port always runs the kernel path's semantics — a deferred record of
 K=4 disk-crossing slots, one march round — so the TPU tiling knobs
 (sublanes, unroll, vote interval, round steps, record guard) and the
 ``march_mode`` switch have no counterpart here.  Modes that are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+yet raise ``NotImplementedError`` naming their ROADMAP item; a
+``geodesics`` other than "pseudo" or "kerr" raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -95,13 +96,24 @@ class RenderConfig:
     height: int = 1081
 
     # --- geodesic march ---
-    # "pseudo": the reference's pseudo-Newtonian bending force.
+    # "pseudo": the reference's pseudo-Newtonian bending force.  "kerr":
+    # exact Kerr null geodesics (Hamiltonian RK4 in Kerr-Schild
+    # coordinates, ``bhx_torch.kerr``), spin from the scene's black hole.
     geodesics: str = "pseudo"
     integrator: Integrator = Integrator.EULER
     step_size: float = 0.15
     max_iterations: int = 2000
     # Coarse-to-fine subdivision threshold on escape-direction divergence.
     angle_division_threshold: float = 0.02
+
+    # RK45 error control: a per-lane Cash-Karp controller whose rejected
+    # lanes retry with the shrunken step on the next pass (bhx.integrate).
+    rk_rtol: float = 1e-3
+    rk_safety: float = 0.9
+    rk_min_factor: float = 0.2
+    rk_max_factor: float = 1.5
+    rk_h_min: float = 1e-3
+    rk_h_max: float = 1.0
 
     # --- feature toggles ---
     show_disk: bool = True
@@ -124,14 +136,9 @@ class RenderConfig:
     tonemap: bool = True
 
     def __post_init__(self):
-        if self.integrator != Integrator.EULER:
-            raise NotImplementedError(
-                "integrator=RK45 is not ported to bhx_torch yet (ROADMAP A10)"
-            )
-        if self.geodesics != "pseudo":
-            raise NotImplementedError(
-                f"geodesics={self.geodesics!r} is not ported to bhx_torch yet "
-                "(exact Kerr: ROADMAP A11)"
+        if self.geodesics not in ("pseudo", "kerr"):
+            raise ValueError(
+                f"geodesics must be 'pseudo' or 'kerr', got {self.geodesics!r}"
             )
         if self.texture_mode != "procedural":
             raise NotImplementedError(

@@ -1,23 +1,30 @@
-// Fused deferred disk shade + front-to-back composite.
+// Fused deferred disk shade + front-to-back composite, and its variant
+// that writes the per-slot shading ingredients instead.
 //
-// Replaces: the Pallas TPU kernel bhx/kernels/shade_pallas.py:
+// Replaces: the Pallas TPU kernels bhx/kernels/shade_pallas.py:
 // _composite_kernel (launched by _composite_pallas), with the per-slot
 // ingredients of _slot_ingredients (:83-160) and the gain sample of
-// _gain_bilinear_hat (:359-404).  Computes the same function as its plain
-// version bhx_torch/kernels/shade.py:composite_torch.
+// _gain_bilinear_hat (:359-404); and _shade_kernel (launched by
+// _ingredients_pallas), the ingredients alone.  Computes the same
+// functions as their plain versions bhx_torch/kernels/shade.py:
+// composite_torch and ingredients_torch.
 //
 // What bounds it on the card: compute on the few rays that crossed the
 // disk.  A valid slot costs four Perlin octaves (16 lattice hashes), an
 // atan2, a sin/cos pair, an exp/log pair and the tint polynomial; most
 // rays of a frame have no valid slot and cost only their 29 loads and 4
-// stores, which is memory traffic at streaming rate.
+// stores, which is memory traffic at streaming rate.  The ingredients
+// variant shades every slot, valid or not (as the reference's jnp mirror
+// does), and writes 28 rows: it is bound by the same compute on every
+// slot.
 //
 // What the design does about it: one thread per ray, looping over the
-// K = 4 slots and skipping invalid ones, so rays with no crossing pay only
-// the loads.  The disk_gain grid is sampled with a direct clamp-addressed
-// 2x2 fetch (the TPU kernel swept all 256 hat-basis cells because Mosaic
-// has no gathers).  The 33 tint coefficients are computed once per device
-// on the host and read through the read-only cache.
+// K = 4 slots; the composite skips invalid ones, so rays with no crossing
+// pay only the loads.  The disk_gain grid is sampled with a direct
+// clamp-addressed 2x2 fetch (the TPU kernel swept all 256 hat-basis cells
+// because Mosaic has no gathers).  The 33 tint coefficients are computed
+// once per device on the host and read through the read-only cache.  The
+// two variants are one template, so they share the slot math.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +47,68 @@ __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-__global__ void __launch_bounds__(128) composite_kernel(
+// Shading ingredients of one slot: od, m, tint r g b, u, v (the order of
+// the reference's ING rows).  m, u, v are 0 without the texture, the tints
+// 1 without the redshift.
+__device__ __forceinline__ void slot_ingredients(
+    float hx, float hy, float hz, float dx, float dz, float cam_dist,
+    const float* __restrict__ params, const float* __restrict__ coeffs,
+    int show_texture, int show_redshift, float ing[7]) {
+  // Optical depth (reference hit_black_hole disk branch, ray.wgsl:612-662).
+  const float rx = hx - params[kBhX];
+  const float ry = hy - params[kBhY];
+  const float rz = hz - params[kBhZ];
+  const float dist2 = rx * rx + ry * ry + rz * rz;
+  const float inv_dist = rsqrtf(dist2 + 1e-20f);
+  const float dist = dist2 * inv_dist;
+  // Reference quirk kept: the first density factor uses |hit_point|.
+  const float abs2 = hx * hx + hy * hy + hz * hz;
+  const float abs_dist = abs2 * rsqrtf(abs2 + 1e-20f);
+  const float d_in = params[kDiskInner], d_out = params[kDiskOuter];
+  float density = 1.0f - abs_dist / d_out;
+  const float tt = clamp01(dist - d_in);
+  density = density * (tt * tt * (3.0f - 2.0f * tt));
+  density = fmaxf(density * sqrtf(inv_dist), 0.0f);
+  const float x = 30.0f * density;
+  ing[0] = x > 0.0f ? expf(1.3f * logf(fmaxf(x, 1e-20f))) : 0.0f;
+
+  ing[1] = ing[5] = ing[6] = 0.0f;
+  if (show_texture) {
+    const float r_norm = (dist - d_in) / (d_out - d_in);
+    const float inv_outer = 1.0f / d_out;
+    const float sx = rx * inv_outer, sy = ry * inv_outer, sz = rz * inv_outer;
+    const float rot_x = params[kR00] * sx + params[kR01] * sy + params[kR02] * sz;
+    const float rot_z = params[kR20] * sx + params[kR21] * sy + params[kR22] * sz;
+    const bool degen = rot_x * rot_x + rot_z * rot_z < 1e-24f;
+    const float spun = -atan2f(rot_z, degen ? 1.0f : rot_x) + params[kSpun];
+    ing[5] = (sinf(spun) * r_norm + 1.0f) * 0.5f;
+    ing[6] = (cosf(spun) * r_norm + 1.0f) * 0.5f;
+    ing[1] = bhx::disk_texel_m(ing[5], ing[6]);
+  }
+  ing[2] = ing[3] = ing[4] = 1.0f;
+  if (show_redshift) {
+    // Doppler x gravitational shift of the 15000 K emitter.
+    const float rhx = rx * inv_dist, rhz = rz * inv_dist;
+    const float velocity = 0.6f * (dx * rhz - dz * rhx);
+    const float doppler = sqrtf(fmaxf((1.0f - velocity) / (1.0f + velocity), 0.0f));
+    const float rs = 2.0f * params[kMass];
+    const float grav = sqrtf(fmaxf(
+        (1.0f - rs / fmaxf(dist, rs + 1e-3f)) /
+            (1.0f - rs / fmaxf(cam_dist, rs + 1e-3f)),
+        0.0f));
+    float shift = clamp01(grav * doppler);
+    shift = shift * shift;
+    ing[2] = bhx::tint(coeffs, 0, shift);
+    ing[3] = bhx::tint(coeffs, 1, shift);
+    ing[4] = bhx::tint(coeffs, 2, shift);
+  }
+}
+
+// kIngredients: write the 7 ingredient rows of every slot, (K*7, N), and
+// skip the composite; otherwise composite the valid slots into r, g, b,
+// transmission, (4, N).
+template <bool kIngredients>
+__global__ void __launch_bounds__(128) shade_kernel(
     const float* __restrict__ slots, const float* __restrict__ cam,
     const float* __restrict__ params, const float* __restrict__ gain, int gh,
     int gw, const float* __restrict__ coeffs, float* __restrict__ out,
@@ -53,42 +121,22 @@ __global__ void __launch_bounds__(128) composite_kernel(
 
   for (int k = 0; k < kMaxCrossings; ++k) {
     const float* s = slots + static_cast<int64_t>(k * kSlotFields) * n + i;
-    if (!(s[6 * n] > 0.5f)) continue;
-    const float hx = s[0], hy = s[1 * n], hz = s[2 * n];
-    const float dx = s[3 * n], dz = s[5 * n];
-
-    // Optical depth (reference hit_black_hole disk branch, ray.wgsl:612-662).
-    const float rx = hx - params[kBhX];
-    const float ry = hy - params[kBhY];
-    const float rz = hz - params[kBhZ];
-    const float dist2 = rx * rx + ry * ry + rz * rz;
-    const float inv_dist = rsqrtf(dist2 + 1e-20f);
-    const float dist = dist2 * inv_dist;
-    // Reference quirk kept: the first density factor uses |hit_point|.
-    const float abs2 = hx * hx + hy * hy + hz * hz;
-    const float abs_dist = abs2 * rsqrtf(abs2 + 1e-20f);
-    const float d_in = params[kDiskInner], d_out = params[kDiskOuter];
-    float density = 1.0f - abs_dist / d_out;
-    const float tt = clamp01(dist - d_in);
-    density = density * (tt * tt * (3.0f - 2.0f * tt));
-    density = fmaxf(density * sqrtf(inv_dist), 0.0f);
-    const float x = 30.0f * density;
-    const float od = x > 0.0f ? expf(1.3f * logf(fmaxf(x, 1e-20f))) : 0.0f;
+    if constexpr (!kIngredients) {
+      if (!(s[6 * n] > 0.5f)) continue;
+    }
+    float ing[7];
+    slot_ingredients(s[0], s[1 * n], s[2 * n], s[3 * n], s[5 * n], cam_dist, params,
+                     coeffs, show_texture, show_redshift, ing);
+    if constexpr (kIngredients) {
+#pragma unroll
+      for (int f = 0; f < 7; ++f) out[static_cast<int64_t>(k * 7 + f) * n + i] = ing[f];
+      continue;
+    }
+    const float od = ing[0], m = ing[1], u = ing[5], v = ing[6];
 
     float opacity = clamp01(od * 0.2f);
     float r = od, g = od, b = od;
     if (show_texture) {
-      const float r_norm = (dist - d_in) / (d_out - d_in);
-      const float inv_outer = 1.0f / d_out;
-      const float sx = rx * inv_outer, sy = ry * inv_outer, sz = rz * inv_outer;
-      const float rot_x = params[kR00] * sx + params[kR01] * sy + params[kR02] * sz;
-      const float rot_z = params[kR20] * sx + params[kR21] * sy + params[kR22] * sz;
-      const bool degen = rot_x * rot_x + rot_z * rot_z < 1e-24f;
-      const float spun = -atan2f(rot_z, degen ? 1.0f : rot_x) + params[kSpun];
-      const float u = (sinf(spun) * r_norm + 1.0f) * 0.5f;
-      const float v = (cosf(spun) * r_norm + 1.0f) * 0.5f;
-      const float m = bhx::disk_texel_m(u, v);
-
       // Clamp-addressed bilinear disk_gain sample, texel centers at
       // (i + 0.5) / size.
       const float gxf = fminf(fmaxf(u * gw - 0.5f, 0.0f), gw - 1.0f);
@@ -115,20 +163,9 @@ __global__ void __launch_bounds__(128) composite_kernel(
       opacity = opacity * clamp01(0.7f + tex_a * 0.5f);
     }
     if (show_redshift) {
-      // Doppler x gravitational shift of the 15000 K emitter.
-      const float rhx = rx * inv_dist, rhz = rz * inv_dist;
-      const float velocity = 0.6f * (dx * rhz - dz * rhx);
-      const float doppler = sqrtf(fmaxf((1.0f - velocity) / (1.0f + velocity), 0.0f));
-      const float rs = 2.0f * params[kMass];
-      const float grav = sqrtf(fmaxf(
-          (1.0f - rs / fmaxf(dist, rs + 1e-3f)) /
-              (1.0f - rs / fmaxf(cam_dist, rs + 1e-3f)),
-          0.0f));
-      float shift = clamp01(grav * doppler);
-      shift = shift * shift;
-      r = r * bhx::tint(coeffs, 0, shift);
-      g = g * bhx::tint(coeffs, 1, shift);
-      b = b * bhx::tint(coeffs, 2, shift);
+      r = r * ing[2];
+      g = g * ing[3];
+      b = b * ing[4];
     }
     const float w = trans * opacity;
     acc_r = acc_r + w * clamp01(r);
@@ -137,10 +174,12 @@ __global__ void __launch_bounds__(128) composite_kernel(
     trans = trans * (1.0f - opacity);
   }
 
-  out[0 * n + i] = acc_r;
-  out[1 * n + i] = acc_g;
-  out[2 * n + i] = acc_b;
-  out[3 * n + i] = trans;
+  if constexpr (!kIngredients) {
+    out[0 * n + i] = acc_r;
+    out[1 * n + i] = acc_g;
+    out[2 * n + i] = acc_b;
+    out[3 * n + i] = trans;
+  }
 }
 
 }  // namespace
@@ -152,8 +191,20 @@ extern "C" int bhx_composite(const float* slots, const float* cam,
                              cudaStream_t stream) {
   constexpr int kBlock = 128;
   const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
-  composite_kernel<<<grid, kBlock, 0, stream>>>(slots, cam, params, gain, gh, gw,
-                                               coeffs, out, n, show_texture,
-                                               show_redshift);
+  shade_kernel<false><<<grid, kBlock, 0, stream>>>(slots, cam, params, gain, gh, gw,
+                                                  coeffs, out, n, show_texture,
+                                                  show_redshift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bhx_ingredients(const float* slots, const float* cam,
+                               const float* params, const float* coeffs, float* out,
+                               int64_t n, int show_texture, int show_redshift,
+                               cudaStream_t stream) {
+  constexpr int kBlock = 128;
+  const unsigned grid = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+  shade_kernel<true><<<grid, kBlock, 0, stream>>>(slots, cam, params, nullptr, 0, 0,
+                                                 coeffs, out, n, show_texture,
+                                                 show_redshift);
   return static_cast<int>(cudaGetLastError());
 }

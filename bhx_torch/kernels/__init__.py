@@ -1,8 +1,9 @@
-"""Hand-written CUDA kernels of the main path and their plain torch
-versions: the geodesic march, the disk shade + composite and the sky
-finalize.  Each wrapper counts its launches in a module-level integer
-``launches``; :func:`launch_counts` reads them, :func:`reset_launch_counts`
-zeroes them."""
+"""Hand-written CUDA kernels and their plain torch versions: the geodesic
+march (Euler, RK45 and Kerr instantiations), the disk shade + composite
+and its ingredients variant, and the sky finalize on record rows and on an
+interleaved record.  Each wrapper counts its launches, by kernel name, in
+its module's ``launches`` dict; :func:`launch_counts` reads them all,
+:func:`reset_launch_counts` zeroes them."""
 
 from __future__ import annotations
 
@@ -10,14 +11,15 @@ from typing import Dict
 
 from bhx_torch.kernels import march, shade, sky
 
-_MODULES = {"march": march, "composite": shade, "sky": sky}
+_MODULES = (march, shade, sky)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: m.launches for name, m in _MODULES.items()}
+    """Kernel launches by kernel name since the last reset."""
+    return {name: c for m in _MODULES for name, c in m.launches.items()}
 
 
 def reset_launch_counts() -> None:
-    for m in _MODULES.values():
-        m.launches = 0
+    for m in _MODULES:
+        for name in m.launches:
+            m.launches[name] = 0

@@ -41,13 +41,18 @@ _F32 = ctypes.c_float
 # C signatures; every entry point also takes the stream last and returns
 # cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # rays, params, out, n, max_iterations, tex_opacity_min, show_disk
-    "bhx_march": (_P, _P, _P, _I64, _I32, _F32, _I32),
+    # rays, params, out, n, max_iterations, tex_opacity_min, show_disk,
+    # mode (0 Euler, 1 RK45, 2 Kerr)
+    "bhx_march": (_P, _P, _P, _I64, _I32, _F32, _I32, _I32),
     # slots, cam_dist, params, gain, gain_h, gain_w, tint, out, n,
     # show_texture, show_redshift
     "bhx_composite": (_P, _P, _P, _P, _I32, _I32, _P, _P, _I64, _I32, _I32),
+    # slots, cam_dist, params, tint, out, n, show_texture, show_redshift
+    "bhx_ingredients": (_P, _P, _P, _P, _P, _I64, _I32, _I32),
     # rows, tint, out, n, show_sky
     "bhx_sky": (_P, _P, _P, _I64, _I32),
+    # record (N, 8), tint, out (N, 3), n, show_sky
+    "bhx_sky_finalize": (_P, _P, _P, _I64, _I32),
 }
 
 

@@ -1,13 +1,16 @@
-"""Fused deferred disk shade + composite: plain torch version and the CUDA
-kernel's wrapper.
+"""Fused deferred disk shade + composite, and the per-slot shading
+ingredients: plain torch versions and the CUDA kernel's wrappers.
 
 Counterpart of ``bhx/kernels/shade_pallas.py``: ``_slot_ingredients``
 (:83-160), the fused ``_composite_kernel`` (:407-469) and its jnp mirror
-``_composite_jnp`` (:520-528).  For each ray, each valid recorded disk
-crossing (the march's K=4 slot rows) is shaded -- optical depth, spiral
-Perlin texel times the bilinear ``disk_gain`` sample, blackbody tint of
-the Doppler x gravitational shift -- and composited front to back.
-Output: a (4, N) tensor of rows r, g, b, transmission.
+``_composite_jnp`` (:520-528), and the ingredients kernel ``_shade_kernel``
+(:163-198) with its jnp mirror ``_ingredients_jnp`` (:263-279).  For each
+ray, each valid recorded disk crossing (the march's K=4 slot rows) is
+shaded -- optical depth, spiral Perlin texel times the bilinear
+``disk_gain`` sample, blackbody tint of the Doppler x gravitational shift
+-- and composited front to back: a (4, N) tensor of rows r, g, b,
+transmission.  The ingredients variant returns, for every slot, its 7
+rows od, m, tint r, g, b, u, v: a (K*7, N) tensor.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ _SP = dict(
 )
 NUM_SHADE_PARAMS = len(_SP)
 SLOT_ROWS = MAX_CROSSINGS * CROSS_FIELDS
+ING_FIELDS = 7  # od, m, tint_r, tint_g, tint_b, u, v
 
-launches = 0
+launches = {"composite": 0, "ingredients": 0}
 
 
 def pack_shade_params(black_hole, rot_mat: torch.Tensor, time) -> torch.Tensor:
@@ -160,11 +164,49 @@ def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
     build.check_vector(gain.view(-1), gain.numel(), slots.device, "gain")
     out = torch.empty((4, n), dtype=torch.float32, device=slots.device)
     if n:
-        global launches
         build.launch(
             "bhx_composite", slots, cam_dist, params, gain,
             int(gain.shape[0]), int(gain.shape[1]), tint_table(slots.device),
             out, n, int(show_texture), int(show_redshift),
         )
-        launches += 1
+        launches["composite"] += 1
+    return out
+
+
+def ingredients_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor, *,
+                      show_texture: bool = True,
+                      show_redshift: bool = True) -> torch.Tensor:
+    """Plain torch shading ingredients of every slot, valid or not:
+    (MAX_CROSSINGS * ING_FIELDS, N) rows, 7 per slot."""
+    p = {name: params[i] for name, i in _SP.items()}
+    rows = []
+    for k in range(MAX_CROSSINGS):
+        hx, hy, hz, dx, _, dz, _ = slots[k * CROSS_FIELDS:(k + 1) * CROSS_FIELDS]
+        ing = _slot_ingredients(hx, hy, hz, dx, dz, cam_dist, p, show_texture,
+                                show_redshift)
+        rows.extend(ing)
+    return torch.stack(rows)
+
+
+def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
+                *, show_texture: bool = True,
+                show_redshift: bool = True) -> torch.Tensor:
+    """Per-slot shading ingredients: the plain version for CPU tensors, the
+    CUDA kernel (``csrc/shade.cu``, its ingredients variant) for CUDA
+    tensors.  ``slots`` is (SLOT_ROWS, N); the result (K*7, N)."""
+    if slots.device.type == "cpu":
+        return ingredients_torch(slots, cam_dist, params, show_texture=show_texture,
+                                 show_redshift=show_redshift)
+    n = slots.shape[1]
+    build.check_rows(slots, SLOT_ROWS, "slots")
+    build.check_vector(cam_dist, n, slots.device, "cam_dist")
+    build.check_vector(params, NUM_SHADE_PARAMS, slots.device, "params")
+    out = torch.empty((MAX_CROSSINGS * ING_FIELDS, n), dtype=torch.float32,
+                      device=slots.device)
+    if n:
+        build.launch(
+            "bhx_ingredients", slots, cam_dist, params, tint_table(slots.device),
+            out, n, int(show_texture), int(show_redshift),
+        )
+        launches["ingredients"] += 1
     return out

@@ -1,10 +1,13 @@
-"""Sky finalize: plain torch version and the CUDA kernel's wrapper.
+"""Sky finalize: plain torch versions and the CUDA kernel's wrappers.
 
 Counterpart of ``bhx/kernels/shade_pallas.py``: ``_sky_rows_kernel``
-(:595-619) and its jnp mirror ``_sky_rows_jnp`` (:653-659).  The 8 record
-rows (cr cg cb alpha amount dx dy dz) become 3 rgb rows: the procedural
-sky radiance of the escape direction, weighted by the residual
-transmission ``amount`` where ``amount > 0.001``, added to the color.
+(:595-619) and its jnp mirror ``_sky_rows_jnp`` (:653-659), and
+``_sky_kernel`` (:686-707) with its jnp mirror ``_sky_finalize_jnp``
+(:740-750).  The 8 record rows (cr cg cb alpha amount dx dy dz) become 3
+rgb rows: the procedural sky radiance of the escape direction, weighted
+by the residual transmission ``amount`` where ``amount > 0.001``, added
+to the color.  ``sky_finalize`` does the same on an interleaved
+(..., 8) record, giving (..., 3).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from bhx_torch.shading import sky_uv
 
 RECORD_ROWS = 8
 
-launches = 0
+launches = {"sky": 0, "sky_finalize": 0}
 
 
 def sky_rows_torch(rows, show_sky: bool = True) -> torch.Tensor:
@@ -40,8 +43,36 @@ def sky_rows(rows: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
     n = rows.shape[1]
     out = torch.empty((3, n), dtype=torch.float32, device=rows.device)
     if n:
-        global launches
         build.launch("bhx_sky", rows, tint_table(rows.device), out, n,
                      int(show_sky))
-        launches += 1
+        launches["sky"] += 1
+    return out
+
+
+def sky_finalize_torch(record: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
+    """Plain torch sky finalize of an interleaved record: (..., 8) -> (..., 3)."""
+    rows = record.reshape(-1, RECORD_ROWS).t().contiguous()
+    rgb = sky_rows_torch(rows, show_sky).t()
+    return rgb.reshape(record.shape[:-1] + (3,))
+
+
+def sky_finalize(record: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
+    """Sky finalize of an interleaved (..., 8) record: the plain version for
+    CPU tensors, the CUDA kernel (``csrc/sky.cu``, its interleaved variant)
+    for CUDA tensors."""
+    if record.device.type == "cpu":
+        return sky_finalize_torch(record, show_sky)
+    if (record.dtype != torch.float32 or record.dim() < 1
+            or record.shape[-1] != RECORD_ROWS or not record.is_contiguous()):
+        raise ValueError(
+            f"record: expected a contiguous float32 (..., {RECORD_ROWS}) tensor, "
+            f"got {record.dtype} {tuple(record.shape)}"
+        )
+    n = record.numel() // RECORD_ROWS
+    out = torch.empty(record.shape[:-1] + (3,), dtype=torch.float32,
+                      device=record.device)
+    if n:
+        build.launch("bhx_sky_finalize", record, tint_table(record.device), out, n,
+                     int(show_sky))
+        launches["sky_finalize"] += 1
     return out

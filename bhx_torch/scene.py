@@ -148,6 +148,14 @@ class Scene(_TensorData):
         )
 
 
+def with_spin(scene: Scene, spin: float) -> Scene:
+    """``scene`` with its black hole's dimensionless spin set to ``spin``."""
+    bh = scene.black_hole
+    return dataclasses.replace(scene, black_hole=dataclasses.replace(
+        bh, spin=torch.full((), float(spin), dtype=torch.float32,
+                            device=bh.spin.device)))
+
+
 def scene_from_state(state: Mapping, device=None) -> Scene:
     """Build a :class:`Scene` from the numpy dict that
     ``bhx.scene.scene_to_state`` returns, so both packages render the same

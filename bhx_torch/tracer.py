@@ -14,7 +14,10 @@ Re-entry rounds run as masked launches whatever their live count: a phase
 with no live ray changes nothing, so no host sync is needed to skip it.
 
 State is a dict of (N,) rows; ``status`` is 0 = needs a straight phase,
-1 = marching, 2 = escaped, 3 = absorbed.
+1 = marching, 2 = escaped, 3 = absorbed.  Under exact Kerr geodesics the
+rows qx qy qz carry each ray's conjugate momentum: a straight phase sets
+it for the rays that enter the sphere, and each march phase resumes from
+it and writes it back.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from bhx_torch.config import RenderConfig
+from bhx_torch import kerr
+from bhx_torch.config import Integrator, RenderConfig
 from bhx_torch.kernels.march import (
-    CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, _OUT_FIXED, march, pack_params,
+    CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, SLOT_ROWS, _OUT_FIXED, march, pack_params,
 )
 from bhx_torch.kernels.shade import composite, pack_shade_params
 from bhx_torch.scene import Camera, Scene, const
@@ -78,6 +82,8 @@ def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
         ox=d[:, 0], oy=d[:, 1], oz=d[:, 2],  # original directions (feather)
         hit=false, status=izeros, march_steps=izeros, entered=false,
         h=zeros, closest=zeros,
+        # Conjugate momentum of the Kerr march (zeros under the pseudo force).
+        qx=zeros, qy=zeros, qz=zeros,
         # K crossing slots of CROSS_FIELDS rows each, in crossing order.
         slots=o.new_zeros((MAX_CROSSINGS * CROSS_FIELDS, n)),
         count=zeros,
@@ -154,19 +160,29 @@ def _straight_phase(state: Dict, black_hole, cfg: RenderConfig) -> Dict:
         closest=torch.where(enters, torch.sqrt(nrx * nrx + nry * nry + nrz * nrz),
                             state["closest"]),
     )
+    if cfg.geodesics == "kerr":
+        # The null momentum along the current direction at the sphere
+        # boundary (bhx/tracer.py:307-317).
+        q = kerr.null_momentum(torch.stack([nrx, nry, nrz], dim=-1),
+                               torch.stack([dx, dy, dz], dim=-1), bh.mass, bh.spin)
+        for c, name in enumerate(("qx", "qy", "qz")):
+            state[name] = torch.where(enters, q[:, c], state[name])
     return state
 
 
-def _march_inputs(state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(rays (10, N), marching mask) for the march kernel."""
+def _march_inputs(state: Dict, cfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rays (10, N), or (13, N) with the momentum under Kerr, marching
+    mask) for the march kernel."""
     was = state["status"] == 1
-    rays = torch.stack([
+    rows = [
         state["px"], state["py"], state["pz"],
         state["dx"], state["dy"], state["dz"],
         state["h"], was.to(torch.float32), state["amount_ub"],
         torch.zeros_like(state["px"]),  # steps already taken (one round)
-    ])
-    return rays, was
+    ]
+    if cfg.geodesics == "kerr":
+        rows += [state["qx"], state["qy"], state["qz"]]
+    return torch.stack(rows), was
 
 
 def march_kwargs(cfg: RenderConfig) -> Dict:
@@ -175,6 +191,8 @@ def march_kwargs(cfg: RenderConfig) -> Dict:
         max_iterations=cfg.max_iterations,
         tex_opacity_min=0.7 if (cfg.show_disk_texture and cfg.show_disk) else 1.0,
         show_disk=cfg.show_disk,
+        integrator="rk45" if cfg.integrator == Integrator.RK45 else "euler",
+        geodesics=cfg.geodesics,
     )
 
 
@@ -183,7 +201,7 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
     """March the status-1 rays in one kernel launch and fold the result
     into the state (``bhx.tracer._march_phase_pallas`` with one round)."""
     bh = black_hole
-    rays, was = _march_inputs(state)
+    rays, was = _march_inputs(state, cfg)
     out = march(rays, params, **march_kwargs(cfg))
     o = _OUT_FIXED
     # Inactive lanes came back unchanged with zero counters and slots.
@@ -197,7 +215,7 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
     hit = state["hit"]
     slots, count = state["slots"], state["count"]
     if cfg.show_disk:
-        w_slots = out[OUT_FIXED:]
+        w_slots = out[OUT_FIXED:OUT_FIXED + SLOT_ROWS]
         w_count = sum(w_slots[k * CROSS_FIELDS + 6] for k in range(MAX_CROSSINGS))
         if first_phase:
             slots, count = w_slots, w_count
@@ -238,6 +256,10 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
         status=status,
         true_count=state["true_count"] + out[o["count"]],
     )
+    if cfg.geodesics == "kerr":
+        # The final momentum after the slot rows (bhx/tracer.py:492-494).
+        qrows = out[OUT_FIXED + SLOT_ROWS:]
+        state.update(qx=qrows[0], qy=qrows[1], qz=qrows[2])
     return state
 
 
@@ -309,7 +331,7 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
 
 def first_march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
                       active: torch.Tensor = None):
-    """(rays (10, N), params, cam_dist (N,)) of the first march launch of a
+    """(rays (10 or 13, N), params, cam_dist (N,)) of the first march launch of a
     (width, height) trace: the camera rays after the first straight phase,
     with ``active`` (optional flat bool mask) as in
     :func:`trace_rays_record_rows`.  Holds the kernel to its plain version
@@ -320,7 +342,7 @@ def first_march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
     state = _init_state(o, d)
     if active is not None:
         state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
-    rays, _ = _march_inputs(_straight_phase(state, bh, cfg))
+    rays, _ = _march_inputs(_straight_phase(state, bh, cfg), cfg)
     _, normal = bh.disk_frame()
     return rays, pack_params(bh, normal, cfg), _norm(o - bh.position)
 

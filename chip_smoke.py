@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the bhx_torch main path once on one CUDA card and check it.
+"""Drive the bhx_torch main paths once on one CUDA card and check them.
 
 Run from the repository root with no arguments:
 
@@ -8,18 +8,27 @@ Run from the repository root with no arguments:
 Phases, each printed as it finishes:
 
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. the kernel build from ``bhx_torch/csrc`` (seconds, ptxas register report);
-3. each kernel against its plain torch version on the card: the march on
-   the 72x41 ladder level 0 and on a dense 640x361 batch, the composite
-   and the sky on that trace, then all three at the default frame's own
-   shapes (the last ladder level and the final frame), timed with CUDA
-   events beside their plain versions;
+2. the kernel build from ``bhx_torch/csrc`` (seconds, ptxas register report
+   of every kernel instantiation);
+3. each kernel against its plain torch version on the card: the Euler
+   march on the 72x41 ladder level 0 and on a dense 640x361 batch, the
+   composite, the slot ingredients, the sky on record rows and on an
+   interleaved record, all on that trace, then march, composite and sky at
+   the default frame's own shapes (the last ladder level and the final
+   frame), timed with CUDA events beside their plain versions;
+3b. the RK45 march and the Kerr march (spin 0.9) the same way, at 72x41,
+   640x361 (with the composite of the Kerr trace's slots) and the last
+   ladder level;
+3c. the slot-ingredients and interleaved-sky kernels, which lie on no
+   render path, driven once through their entry points;
 4. the default 1918x1081 frame through ``bhx_torch.bench.run_bench``:
    image checks, the kernel launches of the frames alone (zeroed just
    before, read just after the last frame), ms/frame, Mrays/s, crossing
    overflow;
+4b. the same for the Kerr spin-0.9 frame and the RK45 frame;
 5. a dense 192x108 frame on the card against the plain path on the CPU
-   (bad-pixel fraction at 2e-2, gated at 2%).
+   (bad-pixel fraction at 2e-2, gated at 2%);
+5b. the same for Kerr spin 0.9 (gated at 3%) and RK45 (2%).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is the device record.  Exits non-zero, printing neither, when
@@ -54,11 +63,12 @@ def main() -> int:
 
     from bhx_torch import checks
     from bhx_torch.bench import run_bench
-    from bhx_torch.config import BloomConfig, FxaaConfig, RenderConfig
-    from bhx_torch.kernels import build, reset_launch_counts
-    from bhx_torch.kernels.march import OUT_FIXED
+    from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
+    from bhx_torch.kernels import build, launch_counts, reset_launch_counts
+    from bhx_torch.kernels import shade, sky
+    from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS
     from bhx_torch.pipeline import ladder_trace_rows, render, trace_image_record_rows
-    from bhx_torch.scene import Scene
+    from bhx_torch.scene import Scene, with_spin
     from bhx_torch.tracer import first_march_batch
 
     failures = []
@@ -101,12 +111,18 @@ def main() -> int:
     rays, params, cam = first_march_batch(scene, cfg, 640, 361)
     r = checks.compare_march(rays, params, cfg)
     check("march 640x361 dense", r["ok"], r)
+    dense_slots, dense_cam = r["out"][OUT_FIXED:OUT_FIXED + SLOT_ROWS], cam
     sp = checks.shade_params(scene)
-    r = checks.compare_composite(r["out"][OUT_FIXED:], cam, sp, scene.disk_gain, cfg)
+    r = checks.compare_composite(dense_slots, dense_cam, sp, scene.disk_gain, cfg)
     check("composite 640x361 dense", r["ok"], r)
+    ing_r = checks.compare_ingredients(dense_slots, dense_cam, sp, cfg, reps=10)
+    check("ingredients 640x361 dense", ing_r["ok"], ing_r)
     record = trace_image_record_rows(scene, cfg, 640, 361).reshape(8, -1)
     r = checks.compare_sky(record, cfg)
     check("sky 640x361 dense", r["ok"], r)
+    interleaved = record.t().contiguous()
+    skyf_r = checks.compare_sky_finalize(interleaved, cfg, reps=10)
+    check("sky_finalize 640x361 dense", skyf_r["ok"], skyf_r)
 
     # The default frame's own shapes, timed: the last ladder level's march
     # launch (its re-trace mask as the active set), the composite of that
@@ -114,8 +130,8 @@ def main() -> int:
     rays, params, cam = checks.last_level_batch(scene, cfg)
     march_r = checks.compare_march(rays, params, cfg, reps=10)
     check("march last level", march_r["ok"], march_r)
-    comp_r = checks.compare_composite(march_r["out"][OUT_FIXED:], cam, sp,
-                                      scene.disk_gain, cfg, reps=10)
+    comp_r = checks.compare_composite(march_r["out"][OUT_FIXED:OUT_FIXED + SLOT_ROWS],
+                                      cam, sp, scene.disk_gain, cfg, reps=10)
     check("composite last level", comp_r["ok"], comp_r)
     lw, lh = cfg.ladder_for_output().final_resolution
     x0, y0 = (lw - cfg.width) // 2, (lh - cfg.height) // 2
@@ -123,50 +139,108 @@ def main() -> int:
     sky_r = checks.compare_sky(frame.reshape(8, -1).contiguous(), cfg, reps=10)
     check("sky final frame", sky_r["ok"], sky_r)
 
-    # --- 4. the default frame through the bench entry point ---
-    # The counts are zeroed just before the frames; run_bench reads them
-    # just after its last frame, before its overflow diagnostic.
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    bench = run_bench(1918, 1081, iters=5)
-    counts = bench["launches"]
-    per_frame = bench["launches_per_frame"]
-    img = bench.pop("image")
-    bench["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    img_ok = (tuple(img.shape) == (1081, 1918, 3) and bool(torch.isfinite(img).all())
-              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
-    # Every frame makes the same launches, so the run's counts are exactly
-    # frames x one frame's, and each kernel ran in every frame.
-    counts_ok = all(per_frame[k] > 0 and counts[k] == bench["frames"] * per_frame[k]
-                    for k in counts)
-    check("frame 1918x1081", img_ok and counts_ok,
-          dict(bench, shape=list(img.shape), mean=float(img.mean())))
+    # --- 3b. the RK45 and Kerr marches against their plain version ---
+    kerr_scene = with_spin(scene, 0.9)
+    branches = {
+        "rk45": (scene, RenderConfig(integrator=Integrator.RK45)),
+        "kerr": (kerr_scene, RenderConfig(geodesics="kerr")),
+    }
+    last = {}
+    for name, (b_scene, b_cfg) in branches.items():
+        rays, params, _ = first_march_batch(b_scene, b_cfg, w0, h0)
+        r = checks.compare_march(rays, params, b_cfg)
+        check(f"march_{name} {w0}x{h0} level 0", r["ok"], r)
+        rays, params, cam = first_march_batch(b_scene, b_cfg, 640, 361)
+        r = checks.compare_march(rays, params, b_cfg)
+        check(f"march_{name} 640x361 dense", r["ok"], r)
+        if name == "kerr":
+            r = checks.compare_composite(r["out"][OUT_FIXED:OUT_FIXED + SLOT_ROWS], cam,
+                                         checks.shade_params(b_scene),
+                                         b_scene.disk_gain, b_cfg)
+            check("composite 640x361 dense kerr", r["ok"], r)
+        rays, params, _ = checks.last_level_batch(b_scene, b_cfg)
+        last[name] = checks.compare_march(rays, params, b_cfg, reps=10)
+        check(f"march_{name} last level", last[name]["ok"], last[name])
 
-    # --- 5. a small dense frame: the card against the plain path on the CPU ---
+    # --- 3c. the kernels on no render path, through their entry points ---
+    reset_launch_counts()
+    ing = shade.ingredients(dense_slots, dense_cam, sp)
+    rgb = sky.sky_finalize(interleaved)
+    torch.cuda.synchronize()
+    aside = launch_counts()
+    check("ingredients + sky_finalize entry points",
+          aside["ingredients"] == 1 and aside["sky_finalize"] == 1
+          and bool(torch.isfinite(ing).all()) and bool(torch.isfinite(rgb).all()),
+          dict(launches=aside, shapes=[list(ing.shape), list(rgb.shape)]))
+
+    # --- 4. the frames through the bench entry point ---
+    # The counts are zeroed just before each run; run_bench reads them
+    # just after its last frame, before its overflow diagnostic.
+    def frame_phase(name: str, march_kernel: str, **kw) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        bench = run_bench(1918, 1081, **kw)
+        counts = bench["launches"]
+        per_frame = bench["launches_per_frame"]
+        img = bench.pop("image")
+        bench["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        img_ok = (tuple(img.shape) == (1081, 1918, 3) and bool(torch.isfinite(img).all())
+                  and float(img.min()) >= 0.0 and float(img.max()) <= 1.0)
+        # Every frame makes the same launches, so the run's counts are
+        # exactly frames x one frame's; each kernel of the path ran in every
+        # frame and no other kernel ran.
+        path = (march_kernel, "composite", "sky")
+        counts_ok = all(
+            (per_frame[k] > 0) == (k in path) and counts[k] == bench["frames"] * per_frame[k]
+            for k in counts)
+        check(name, img_ok and counts_ok,
+              dict(bench, shape=list(img.shape), mean=float(img.mean())))
+        return counts
+
+    counts = frame_phase("frame 1918x1081", "march", iters=5)
+    # --- 4b. the Kerr spin-0.9 frame and the RK45 frame ---
+    counts_kerr = frame_phase("frame 1918x1081 kerr(spin=0.9)", "march_kerr", iters=3,
+                              geodesics="kerr", spin=0.9)
+    counts_rk45 = frame_phase("frame 1918x1081 rk45", "march_rk45", iters=3,
+                              integrator=Integrator.RK45)
+
+    # --- 5. small dense frames: the card against the plain path on the CPU ---
     small = RenderConfig(width=192, height=108, use_ladder=False, max_iterations=600,
                          bloom=BloomConfig(enabled=False),
                          fxaa=FxaaConfig(enabled=False), tonemap=False)
-    on_card = render(scene, small).cpu()
-    on_cpu = render(scene.to("cpu"), small)
-    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
-    check("frame 192x108 card vs cpu", bool(torch.isfinite(on_card).all()) and bad <= 0.02,
-          dict(bad_frac=bad, max_abs_err=float((on_card - on_cpu).abs().max())))
+    for name, s_scene, s_cfg, gate in (
+            ("frame 192x108 card vs cpu", scene, small, 0.02),
+            ("frame 192x108 card vs cpu kerr(spin=0.9)", kerr_scene,
+             small.replace(geodesics="kerr"), 0.03),
+            ("frame 192x108 card vs cpu rk45", scene,
+             small.replace(integrator=Integrator.RK45), 0.02)):
+        on_card = render(s_scene, s_cfg).cpu()
+        on_cpu = render(s_scene.to("cpu"), s_cfg)
+        bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+        check(name, bool(torch.isfinite(on_card).all()) and bad <= gate,
+              dict(bad_frac=bad, gate=gate,
+                   max_abs_err=float((on_card - on_cpu).abs().max())))
 
     if failures:
         _die("failed phases: " + ", ".join(failures))
 
+    def entry(name, source, replaces, launches, r):
+        return dict(name=name, route="cuda", source=f"bhx_torch/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+
+    march_at = "bhx/kernels/march_pallas.py:319"
     kernels = [
-        dict(name="march", route="cuda", source="bhx_torch/csrc/march.cu",
-             replaces="bhx/kernels/march_pallas.py:319", launches=counts["march"],
-             max_abs_err=march_r["max_abs_err"], ms=march_r["ms"],
-             plain_ms=march_r["plain_ms"]),
-        dict(name="composite", route="cuda", source="bhx_torch/csrc/shade.cu",
-             replaces="bhx/kernels/shade_pallas.py:499", launches=counts["composite"],
-             max_abs_err=comp_r["max_abs_err"], ms=comp_r["ms"],
-             plain_ms=comp_r["plain_ms"]),
-        dict(name="sky", route="cuda", source="bhx_torch/csrc/sky.cu",
-             replaces="bhx/kernels/shade_pallas.py:639", launches=counts["sky"],
-             max_abs_err=sky_r["max_abs_err"], ms=sky_r["ms"], plain_ms=sky_r["plain_ms"]),
+        entry("march", "march.cu", march_at, counts["march"], march_r),
+        entry("march_rk45", "march.cu", march_at, counts_rk45["march_rk45"], last["rk45"]),
+        entry("march_kerr", "march.cu", march_at, counts_kerr["march_kerr"], last["kerr"]),
+        entry("composite", "shade.cu", "bhx/kernels/shade_pallas.py:499",
+              counts["composite"], comp_r),
+        entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", counts["sky"], sky_r),
+        entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246",
+              aside["ingredients"], ing_r),
+        entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723",
+              aside["sky_finalize"], skyf_r),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ from bhx_torch.kernels import launch_counts
 from bhx_torch.kernels import march as tmarch
 from bhx_torch.kernels import shade as tshade
 from bhx_torch.kernels import sky as tsky
+from bhx_torch.scene import with_spin
 from bhx_torch.tracer import first_march_batch
+
+_SLOTS = slice(tmarch.OUT_FIXED, tmarch.OUT_FIXED + tmarch.SLOT_ROWS)
 
 pytestmark = pytest.mark.gpu
 
@@ -43,12 +46,31 @@ def test_dense_trace_kernels_match_plain(frame):
     rays, params, cam = first_march_batch(scene, cfg, 640, 361)
     r = checks.compare_march(rays, params, cfg)
     assert r["ok"], {k: v for k, v in r.items() if k != "out"}
-    c = checks.compare_composite(r["out"][tmarch.OUT_FIXED:], cam,
+    c = checks.compare_composite(r["out"][_SLOTS], cam,
                                  checks.shade_params(scene), scene.disk_gain, cfg)
     assert c["ok"], c
+    i = checks.compare_ingredients(r["out"][_SLOTS], cam, checks.shade_params(scene), cfg)
+    assert i["ok"], i
     record = bhx_torch.pipeline.trace_image_record_rows(scene, cfg, 640, 361)
     s = checks.compare_sky(record.reshape(8, -1), cfg)
     assert s["ok"], s
+    f = checks.compare_sky_finalize(record.reshape(8, -1).t().contiguous(), cfg)
+    assert f["ok"], f
+
+
+@pytest.mark.parametrize("branch", ["rk45", "kerr"])
+def test_rk45_and_kerr_marches_match_plain(frame, branch):
+    scene, cfg = frame
+    if branch == "kerr":
+        scene, cfg = with_spin(scene, 0.9), cfg.replace(geodesics="kerr")
+    else:
+        cfg = cfg.replace(integrator=bhx_torch.Integrator.RK45)
+    for size in (cfg.ladder_for_output().resolution(0), (640, 361)):
+        rays, params, _ = first_march_batch(scene, cfg, *size)
+        before = launch_counts()[f"march_{branch}"]
+        r = checks.compare_march(rays, params, cfg)
+        assert r["ok"], {k: v for k, v in r.items() if k != "out"}
+        assert launch_counts()[f"march_{branch}"] == before + 1
 
 
 def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch):

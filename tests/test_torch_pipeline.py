@@ -1,7 +1,7 @@
 """The whole bhx_torch slice against the JAX reference on the CPU: camera
 rays, the ladder refine decision, each post stage, the phase identities,
 and ``bhx_torch.render`` against ``bhx.render(march_mode="fast")`` and the
-``ladder_post`` golden image."""
+``ladder_post``, ``rk45_disk_shift`` and ``kerr_spin09`` golden images."""
 
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from bhx_torch import tracer as ttracer
 from bhx_torch.pipeline import _refine_masks, final_level_retrace_mask
 
 from tests.common import FAST_CFG, LADDER_CFG, small_scene
+from tests.test_golden import _cases as golden_cases
 
 torch.set_num_threads(2)
 
@@ -208,14 +209,51 @@ def test_render_matches_ladder_post_golden():
     assert bad <= 0.02, f"{bad:.2%} pixels differ by more than 2e-2"
 
 
+# Each golden of a march branch this slice ports, with its gate: RK45 at
+# the port's 2% bad-pixel gate, Kerr at 3%, the reference's own allowance
+# for its Kerr kernel against its jnp march (tests/test_pallas.py:70-74).
+_GOLDEN_GATES = {"rk45_disk_shift": 0.02, "kerr_spin09": 0.03}
+
+
+@pytest.mark.parametrize("name", sorted(_GOLDEN_GATES))
+def test_render_matches_march_golden(name):
+    """``render`` on the CPU against the committed golden of the same scene
+    and config (tests/test_golden.py; 64x36, no post), rendered by bhx's
+    jnp march, which composites every crossing as it goes."""
+    scene, cfg = golden_cases()[name]
+    tscene = bhx_torch.scene_from_state(scene_to_state(scene))
+    got = bhx_torch.render(tscene, torch_cfg(cfg)).numpy()
+    want = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))["img"]
+    assert got.shape == want.shape
+    assert np.isfinite(got).all() and got.min() >= 0.0
+    bad = _bad_frac(got, want.astype(np.float32))
+    assert bad <= _GOLDEN_GATES[name], f"{bad:.2%} pixels differ by more than 2e-2"
+
+
+def test_config_carries_the_march_fields():
+    """torch_cfg brings RK45, Kerr and the controller fields across."""
+    _, cfg = golden_cases()["rk45_disk_shift"]
+    tcfg = torch_cfg(dataclasses.replace(cfg, rk_rtol=2e-4, rk_h_max=0.5))
+    assert tcfg.integrator == bhx_torch.Integrator.RK45
+    assert (tcfg.rk_rtol, tcfg.rk_h_max) == (2e-4, 0.5)
+    assert ttracer.march_kwargs(tcfg)["integrator"] == "rk45"
+    _, kcfg = golden_cases()["kerr_spin09"]
+    assert ttracer.march_kwargs(torch_cfg(kcfg))["geodesics"] == "kerr"
+
+
 def test_import_and_render_pull_in_no_jax():
     code = (
-        "import sys, torch, bhx_torch\n"
+        "import dataclasses, sys, torch, bhx_torch\n"
         "torch.set_num_threads(2)\n"
         "cfg = bhx_torch.RenderConfig(width=32, height=18, use_ladder=False,"
         " max_iterations=200)\n"
-        "img = bhx_torch.render(bhx_torch.Scene.default(), cfg)\n"
+        "scene = bhx_torch.Scene.default()\n"
+        "img = bhx_torch.render(scene, cfg)\n"
         "assert tuple(img.shape) == (18, 32, 3), img.shape\n"
+        "kerr = dataclasses.replace(scene, black_hole=dataclasses.replace("
+        "scene.black_hole, spin=torch.tensor(0.9)))\n"
+        "img = bhx_torch.render(kerr, cfg.replace(geodesics='kerr'))\n"
+        "assert tuple(img.shape) == (18, 32, 3) and bool(torch.isfinite(img).all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bhx'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

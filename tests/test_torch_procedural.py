@@ -154,13 +154,18 @@ def test_scene_with_meshes_raises():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(integrator=bhx_torch.Integrator.RK45), "A10"),
-    (dict(geodesics="kerr"), "A11"),
     (dict(texture_mode="array"), "A13"),
 ])
 def test_config_rejects_unported_modes(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         bhx_torch.RenderConfig(**kw)
+
+
+def test_config_rejects_unknown_geodesics():
+    with pytest.raises(ValueError, match="geodesics"):
+        bhx_torch.RenderConfig(geodesics="bogus")
+    for ok in (dict(integrator=bhx_torch.Integrator.RK45), dict(geodesics="kerr")):
+        bhx_torch.RenderConfig(**ok)
 
 
 def test_ladder_matches_bhx():

@@ -1,5 +1,6 @@
-"""The plain torch disk composite and sky finalize against the JAX
-reference's jnp mirrors ``_composite_jnp`` and ``_sky_rows_jnp`` on the
+"""The plain torch disk composite, slot ingredients and sky finalize
+against the JAX reference's jnp mirrors ``_composite_jnp``,
+``_ingredients_jnp``, ``_sky_rows_jnp`` and ``_sky_finalize_jnp`` on the
 CPU (the Pallas kernels' polynomial atan2 is not what the port computes,
 so the mirrors are the reference)."""
 
@@ -12,8 +13,8 @@ import torch
 
 import bhx.kernels.shade_pallas as jshade
 from bhx.kernels.shade_pallas import (
-    ShadeKernelConfig, SkyKernelConfig, _composite_jnp, _sky_rows_jnp,
-    pack_shade_params as jax_pack_shade_params,
+    ShadeKernelConfig, SkyKernelConfig, _composite_jnp, _ingredients_jnp,
+    _sky_finalize_jnp, _sky_rows_jnp, pack_shade_params as jax_pack_shade_params,
 )
 
 import bhx_torch
@@ -114,10 +115,42 @@ def test_composite_wrapper_runs_plain_version_for_cpu_tensors():
     slots, cam = _slots(n=64)
     args = (torch.from_numpy(slots), torch.from_numpy(cam),
             torch.from_numpy(_params()), torch.ones((16, 16, 4)))
-    before = tshade.launches
+    before = dict(tshade.launches)
     torch.testing.assert_close(tshade.composite(*args), tshade.composite_torch(*args),
                                atol=0, rtol=0)
+    torch.testing.assert_close(tshade.ingredients(*args[:3]),
+                               tshade.ingredients_torch(*args[:3]), atol=0, rtol=0)
     assert tshade.launches == before
+
+
+@pytest.mark.parametrize("show_texture", [True, False])
+@pytest.mark.parametrize("show_redshift", [True, False])
+def test_ingredients_match_jnp(show_texture, show_redshift):
+    """Every slot's 7 ingredient rows, on the valid slots (as
+    tests/test_pallas.py:115-119 compares them) and the invalid ones alike:
+    the plain version shades every slot, as ``_ingredients_jnp`` does."""
+    slots, cam = _slots()
+    params = _params()
+    kcfg = ShadeKernelConfig(max_crossings=4, show_texture=show_texture,
+                             show_redshift=show_redshift)
+    want = np.stack([np.asarray(r) for r in _ingredients_jnp(
+        tuple(jnp.asarray(r) for r in slots), jnp.asarray(cam), jnp.asarray(params),
+        kcfg)])
+    got = tshade.ingredients_torch(
+        torch.from_numpy(slots), torch.from_numpy(cam), torch.from_numpy(params),
+        show_texture=show_texture, show_redshift=show_redshift,
+    ).numpy()
+    assert got.shape == want.shape == (4 * tshade.ING_FIELDS, slots.shape[1])
+    assert np.isfinite(got).all()
+    got, want = got.reshape(4, 7, -1), want.reshape(4, 7, -1)
+    valid = np.broadcast_to((slots.reshape(4, 7, -1)[:, 6] > 0.5)[:, None], got.shape)
+    assert (want[:, 0][valid[:, 0]] > 0.0).mean() > 0.3  # optical depth present
+    # od, m, u, v at 1e-4; the tint rows at the reference's own gate for
+    # this kernel (tests/test_pallas.py:119), since its tint polynomial
+    # carries ~1e-3 of float32 rounding noise (ROADMAP section C).
+    plain = [0, 1, 5, 6]
+    np.testing.assert_allclose(got[:, plain], want[:, plain], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[:, 2:5], want[:, 2:5], atol=2e-3, rtol=1e-3)
 
 
 def _record(n: int = 600, seed: int = 2):
@@ -148,9 +181,31 @@ def test_sky_rows_match_jnp(show_sky):
     assert err.max() < 0.2
 
 
+@pytest.mark.parametrize("show_sky", [True, False])
+def test_sky_finalize_matches_jnp(show_sky):
+    """The interleaved (N, 8) record, at tests/test_pallas.py:137-145's
+    tolerances; the same numbers as the rows version, transposed."""
+    rec = np.ascontiguousarray(_record().T.reshape(20, 30, 8))
+    want = np.asarray(_sky_finalize_jnp(jnp.asarray(rec), SkyKernelConfig(show_sky=show_sky)))
+    got = tsky.sky_finalize_torch(torch.from_numpy(rec), show_sky).numpy()
+    assert got.shape == want.shape == (20, 30, 3)
+    assert np.isfinite(got).all()
+    rows = tsky.sky_rows_torch(torch.from_numpy(_record()), show_sky).numpy()
+    np.testing.assert_array_equal(got.reshape(-1, 3), rows.T)
+    if not show_sky:
+        np.testing.assert_array_equal(got, rec[..., :3])
+        return
+    err = np.abs(got - want)
+    assert np.quantile(err, 0.995) < 2e-3
+    assert err.max() < 0.2
+
+
 def test_sky_wrapper_runs_plain_version_for_cpu_tensors():
     rec = torch.from_numpy(_record(n=64))
-    before = tsky.launches
+    before = dict(tsky.launches)
     torch.testing.assert_close(tsky.sky_rows(rec), tsky.sky_rows_torch(rec),
                                atol=0, rtol=0)
+    interleaved = rec.t().contiguous()
+    torch.testing.assert_close(tsky.sky_finalize(interleaved),
+                               tsky.sky_finalize_torch(interleaved), atol=0, rtol=0)
     assert tsky.launches == before
