@@ -14,10 +14,13 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.post       bloom, mix, ACES, FXAA
   bhx_torch.kernels    march (Euler, RK45, Kerr) / composite / ingredients /
                        sky kernels and their plain versions
-  bhx_torch.bench      the 1918x1081 frame timed on the card
+  bhx_torch.bench      the 1918x1081 frame timed on the card, the gradient gate
+  bhx_torch.parallel   scene fitting by Adam on one device
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors
-launch the kernel, which is built with nvcc on first use.
+launch the kernel, which is built with nvcc on first use.  ``render`` is
+differentiable: each kernel call is a ``torch.autograd.Function`` whose
+backward replays the kernel's plain version under autograd.
 """
 
 from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, LadderConfig, RenderConfig

@@ -1,5 +1,6 @@
 """Throughput of the default frame on one CUDA card (counterpart of
-``bhx/bench.py:run_bench``).
+``bhx/bench.py:run_bench``), and the card's gradient gate
+(:func:`grad_check`, counterpart of ``bhx/bench.py:grad_check``).
 
 The frame is the full default pipeline -- 4-level ladder, the march
 (Euler by default, or RK45, or exact Kerr geodesics at a given spin),
@@ -15,10 +16,12 @@ import dataclasses
 import time
 from typing import Dict
 
+import numpy as np
 import torch
 
-from bhx_torch.config import Integrator, LadderConfig, RenderConfig
+from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, LadderConfig, RenderConfig
 from bhx_torch.kernels import build, launch_counts
+from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import render
 from bhx_torch.scene import Scene, with_spin
 from bhx_torch.tracer import crossing_overflow_stats
@@ -98,4 +101,108 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
         "resolution": [width, height],
         "device": torch.cuda.get_device_name(0),
         "image": img,
+    }
+
+
+def grad_check(width: int = 320, height: int = 180, rel_tol: float = 0.1) -> Dict:
+    """The card's gradient gate (counterpart of ``bhx/bench.py:grad_check``):
+    one reverse-mode gradient of a weighted-pixel loss with respect to the
+    mass, through the kernels' forward and their replayed backward on the
+    card, against Richardson-extrapolated central differences of the same
+    loss.
+
+    As in the reference, the frame has no sky, disk texture or post chain
+    (their feature scales lie below any usable step), and the pixel weights
+    (``default_rng(7)``) are zero where FD(1e-3) and FD(5e-4) disagree: a
+    visibility edge that moves with the mass gives FD a boundary term that
+    the pointwise gradient does not have.  ``grad_ok`` needs more than half
+    the pixels FD-stable and a relative error under ``rel_tol``.
+    ``grad_s`` is the seconds of the gradient call (forward + backward).
+    Raises without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("grad_check measures on a CUDA device; none is available")
+    out = _grad_check(torch.device("cuda"), width, height, rel_tol)
+    out["device"] = torch.cuda.get_device_name(0)
+    return out
+
+
+# Central-difference steps of the FD-stability test, and its agreement
+# tolerance (relative to the larger of the two, plus an absolute floor).
+FD_STEPS = (1e-3, 5e-4)
+FD_RTOL, FD_ATOL = 0.05, 1e-4
+
+
+def _fd_images(img_of, x0: torch.Tensor, unit: torch.Tensor):
+    """Central differences of ``img_of`` at ``x0`` along ``unit``, one image
+    (numpy) per step of FD_STEPS."""
+    with torch.no_grad():
+        return [((img_of(x0 + e * unit) - img_of(x0 - e * unit)) / (2.0 * e)).cpu().numpy()
+                for e in FD_STEPS]
+
+
+def _fd_agree(fds) -> np.ndarray:
+    scale = np.maximum(np.abs(fds[0]), np.abs(fds[1]))
+    return np.abs(fds[0] - fds[1]) <= FD_RTOL * scale + FD_ATOL
+
+
+def fd_stable(scene: Scene, cfg: RenderConfig, names) -> np.ndarray:
+    """The (height, width, 3) pixels whose central differences at the two
+    FD_STEPS agree, along every component of every named entry of
+    ``parallel.scene_params(scene)``.  A gradient comparison weights the
+    other pixels by zero (``tests/test_grad.py``'s discipline): a visibility
+    edge that moves gives FD a boundary term the pointwise gradient lacks,
+    and a ray near the photon sphere has an adjoint that grows
+    exponentially, so two float programs' pointwise gradients part there
+    by orders of magnitude."""
+    base = scene_params(scene)
+    stable = np.ones((cfg.height, cfg.width, 3), bool)
+    for n in names:
+        x0 = base[n]
+        for c in range(x0.numel()):
+            unit = torch.zeros(x0.numel(), dtype=x0.dtype, device=x0.device)
+            unit[c] = 1.0
+
+            def img_of(x):
+                return render(apply_params(scene, dict(base, **{n: x})), cfg)
+
+            stable &= _fd_agree(_fd_images(img_of, x0, unit.reshape(x0.shape)))
+    return stable
+
+
+def _grad_check(dev: torch.device, width: int, height: int, rel_tol: float) -> Dict:
+    """:func:`grad_check` on ``dev`` (the CPU tests run it at a small size)."""
+    scene = Scene.default(dev)
+    cfg = RenderConfig(
+        width=width, height=height, use_ladder=False, max_iterations=600,
+        fxaa=FxaaConfig(enabled=False), bloom=BloomConfig(enabled=False),
+        tonemap=False, show_sky=False, show_disk_texture=False,
+    )
+
+    def img_of(mass: torch.Tensor) -> torch.Tensor:
+        bh = dataclasses.replace(scene.black_hole, mass=mass)
+        return render(dataclasses.replace(scene, black_hole=bh), cfg)
+
+    m0 = torch.full((), 0.5, dtype=torch.float32, device=dev)
+    fds = _fd_images(img_of, m0, torch.ones_like(m0))
+    stable = _fd_agree(fds)
+    stable_frac = float(stable.mean())
+    fd_ref = (4.0 * fds[1] - fds[0]) / 3.0  # Richardson, steps 1e-3 and 5e-4
+    w = np.random.default_rng(7).random((height, width, 3)) * stable
+    w_dev = torch.as_tensor(w, dtype=torch.float32, device=dev)
+
+    t0 = time.perf_counter()
+    mass = m0.clone().requires_grad_()
+    loss = (img_of(mass) * w_dev).sum() / (width * height)
+    (g,) = torch.autograd.grad(loss, mass)
+    ad = float(g)  # waits for the device
+    grad_s = time.perf_counter() - t0
+    fd = float(np.sum(fd_ref * w)) / (width * height)
+    rel = abs(ad - fd) / max(abs(ad), abs(fd), 1e-8)
+    return {
+        "grad_ad": ad,
+        "grad_fd": fd,
+        "grad_stable_frac": stable_frac,
+        "grad_rel_err": rel,
+        "grad_s": grad_s,
+        "grad_ok": bool(stable_frac > 0.5 and rel < rel_tol),
     }

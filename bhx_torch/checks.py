@@ -10,7 +10,10 @@ Tolerances, the same as the CPU tests' against the JAX reference:
 * composite and ingredients: max |err| <= 1e-4;
 * sky on rows and on an interleaved record: 99.5% quantile of |err| <
   2e-3 and max < 0.2 (a star splat's edge moves with the last bit of the
-  escape direction).
+  escape direction);
+* the render's gradient on the card against the CPU's
+  (:func:`compare_gradients`): every parameter within 1e-3 of its
+  largest entry.
 
 Each ``compare_*`` returns a dict with ``ok``, the error figures, and the
 kernel's and the plain version's milliseconds per call (CUDA events; the
@@ -20,15 +23,19 @@ version timed once).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
+from bhx_torch.bench import fd_stable
 from bhx_torch.config import RenderConfig
 from bhx_torch.kernels import march as march_mod
 from bhx_torch.kernels import shade as shade_mod
 from bhx_torch.kernels import sky as sky_mod
-from bhx_torch.pipeline import final_level_retrace_mask
+from bhx_torch.parallel import apply_params, scene_params
+from bhx_torch.pipeline import final_level_retrace_mask, render
 from bhx_torch.scene import Scene
 from bhx_torch.tracer import first_march_batch, march_kwargs
 
@@ -37,6 +44,10 @@ MARCH_BAD_FRAC = 0.01
 COMPOSITE_ATOL = 1e-4
 SKY_Q995 = 2e-3
 SKY_MAX = 0.2
+GRAD_REL = 1e-3
+# Pixels whose card and CPU forward values part by more than this are left
+# out of the gradient comparison (the CPU tests' tolerance against bhx).
+GRAD_FWD_ATOL = 1e-5
 
 
 def _timed(fn: Callable, reps: int = 1) -> Tuple[torch.Tensor, float]:
@@ -127,3 +138,43 @@ def compare_sky_finalize(record, cfg: RenderConfig, reps: int = 1) -> Dict:
     """The sky kernel on an interleaved (..., 8) record."""
     return _compare_sky(sky_mod.sky_finalize, sky_mod.sky_finalize_torch, record,
                         cfg, reps)
+
+
+def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
+    """The gradient of ``sum(w * render(scene, cfg))`` with respect to every
+    ``parallel.scene_params`` entry and ``disk_gain``: on the card (the
+    kernels' forward, their replayed backward) against the plain path on
+    the CPU.  ``scene`` lies on the card.
+
+    ``w`` is ``default_rng(seed)`` uniform, zero where the two programs'
+    pointwise derivatives may part by more than rounding: pixels that are
+    not FD-stable along every fitted entry (``bench.fd_stable``: rays near
+    the photon sphere, moving visibility edges), and pixels whose forward
+    values differ by more than GRAD_FWD_ATOL (there the disk texture's
+    finest octave, whose slope sums terms of order 100 that cancel, shows
+    the two devices' float32 rounding).  ``ok``: every entry finite on the
+    card, and each parameter whose largest entry exceeds 1e-6 of the
+    largest of all within GRAD_REL of it."""
+    names = [k for k in scene_params(scene) if k != "spin" or cfg.geodesics == "kerr"]
+    cpu_scene = scene.to("cpu")
+    with torch.no_grad():
+        fwd_err = (render(scene, cfg).cpu() - render(cpu_scene, cfg)).abs().numpy()
+    keep = fd_stable(scene, cfg, names) & (fwd_err <= GRAD_FWD_ATOL).all(-1, keepdims=True)
+    weights = np.random.default_rng(seed).random((cfg.height, cfg.width, 3)) * keep
+
+    def grads(s: Scene) -> Dict[str, torch.Tensor]:
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in scene_params(s).items()}
+        leaves["disk_gain"] = s.disk_gain.detach().clone().requires_grad_()
+        s = dataclasses.replace(apply_params(s, leaves), disk_gain=leaves["disk_gain"])
+        img = render(s, cfg)
+        loss = (img * torch.as_tensor(weights, dtype=img.dtype, device=img.device)).sum()
+        return {k: g.cpu() for k, g in zip(leaves, torch.autograd.grad(loss, list(leaves.values())))}
+
+    on_card, on_cpu = grads(scene), grads(cpu_scene)
+    largest = max(float(g.abs().max()) for g in on_cpu.values())
+    rel = {k: float((on_card[k] - g).abs().max() / g.abs().max())
+           for k, g in on_cpu.items() if float(g.abs().max()) > 1e-6 * largest}
+    finite = all(bool(torch.isfinite(g).all()) for g in on_card.values())
+    worst = max(rel, key=rel.get)
+    return dict(kept_frac=float(keep.mean()), max_rel_err=rel[worst], worst=worst,
+                rel_err=rel, ok=finite and rel[worst] < GRAD_REL)

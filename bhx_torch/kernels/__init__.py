@@ -2,8 +2,11 @@
 march (Euler, RK45 and Kerr instantiations), the disk shade + composite
 and its ingredients variant, and the sky finalize on record rows and on an
 interleaved record.  Each wrapper counts its launches, by kernel name, in
-its module's ``launches`` dict; :func:`launch_counts` reads them all,
-:func:`reset_launch_counts` zeroes them."""
+its module's ``launches`` dict; :func:`launch_counts` reads them all.
+Each wrapper is a ``torch.autograd.Function`` whose backward replays the
+plain version under autograd; those replays are counted in the modules'
+``replays`` dicts, by the same names (:func:`replay_counts`).
+:func:`reset_launch_counts` zeroes both."""
 
 from __future__ import annotations
 
@@ -19,7 +22,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: c for m in _MODULES for name, c in m.launches.items()}
 
 
+def replay_counts() -> Dict[str, int]:
+    """Backward replays by kernel name since the last reset."""
+    return {name: c for m in _MODULES for name, c in m.replays.items()}
+
+
 def reset_launch_counts() -> None:
+    """Zero the launch and the replay counts."""
     for m in _MODULES:
-        for name in m.launches:
-            m.launches[name] = 0
+        for counts in (m.launches, m.replays):
+            for name in counts:
+                counts[name] = 0

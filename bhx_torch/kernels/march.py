@@ -21,6 +21,8 @@ are 0.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from bhx_torch import kerr
 from bhx_torch.integrate import (
@@ -63,6 +65,19 @@ _EULER, _RK45, _KERR = range(3)
 KERNEL_NAMES = ("march", "march_rk45", "march_kerr")
 
 launches = dict.fromkeys(KERNEL_NAMES, 0)
+# Backward replays (:func:`march_replay` calls), by the same names.
+replays = dict.fromkeys(KERNEL_NAMES, 0)
+
+# Substeps between the all-done tests, and in each checkpointed segment of
+# the backward replay (the reference's 32-step leaf, march_grad.py:68-70).
+SEGMENT_STEPS = 32
+# Live rays in each chunk of the backward replay (the counterpart of
+# ``pallas_bwd_chunks``, bhx/config.py:233-236).  A replayed substep keeps
+# ~100 (N,) float32 tensors for the backward, ~0.8 GB at the 2,073,358
+# rays of a 1918x1081 frame, so the frame in one chunk peaks at ~17 GB on
+# the card (32-step segment pulled back, plus the segment checkpoints)
+# and takes half the time of two chunks, which peak at ~10 GB.
+REPLAY_CHUNK_RAYS = 1 << 21
 
 
 def in_fields(geodesics: str = "pseudo") -> int:
@@ -188,9 +203,11 @@ def _kerr_proposal(s, p):
 
 
 def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
-    """One substep on the state dict ``s`` (in place); records a crossing
-    into ``slots`` ((K*7, N), in place).  Same operations as
-    ``march_substep`` under the branch ``mode`` (_EULER, _RK45, _KERR)."""
+    """One substep: rebinds the entries of the state dict ``s`` and of
+    ``slots`` (a list of K*7 (N,) rows) to new tensors, writing into no
+    tensor, so a checkpointed replay recomputes it from its inputs.  Same
+    operations as ``march_substep`` under the branch ``mode`` (_EULER,
+    _RK45, _KERR)."""
     bx, by, bz = p["bh_x"], p["bh_y"], p["bh_z"]
     px, py, pz = s["px"], s["py"], s["pz"]
     dx, dy, dz = s["dx"], s["dy"], s["dz"]
@@ -270,11 +287,14 @@ def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
 
     if show_disk:
         # Early-exit transmission bound: pow-free minorant
-        # x^1.3 >= min(x, x^2) of the optical depth (30*dens)^1.3.
-        irr = torch.rsqrt(rr2 + 1e-20)
-        rr = rr2 * irr
-        dens = 1.0 - rr * p["inv_d_out"]
-        tt = torch.clamp(rr - p["disk_inner"], 0.0, 1.0)
+        # x^1.3 >= min(x, x^2) of the optical depth (30*dens)^1.3.  A
+        # heuristic mask input, so its inputs are detached, where the
+        # reference's replay stops their gradient (march_substep.py:288-293).
+        rr2_ng = rr2.detach()
+        irr = torch.rsqrt(rr2_ng + 1e-20)
+        rr = rr2_ng * irr
+        dens = 1.0 - rr * p["inv_d_out"].detach()
+        tt = torch.clamp(rr - p["disk_inner"].detach(), 0.0, 1.0)
         dens = dens * (tt * tt * (3.0 - 2.0 * tt))
         dens = torch.clamp(dens * torch.sqrt(irr), min=0.0)
         x = 30.0 * dens
@@ -317,19 +337,9 @@ def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
         & ~(exited_now | absorbed)
 
 
-def march_torch(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
-                tex_opacity_min: float = 0.7, show_disk: bool = True,
-                integrator: str = "euler", geodesics: str = "pseudo") -> torch.Tensor:
-    """Plain torch march (see the module docstring for the contract).
-
-    Runs substeps until no lane is active or ``max_iterations`` passes; a
-    pass over inactive lanes is an identity, so stopping early is exact.
-    The all-done test runs every 32 passes (a host sync on CUDA)."""
-    mode = _mode(integrator, geodesics)
-    fin = in_fields(geodesics)
-    if rays.shape[0] != fin:
-        raise ValueError(f"expected {fin} ray rows, got {rays.shape[0]}")
-    n = rays.shape[1]
+def _scalars(params: torch.Tensor) -> dict:
+    """The scalar dict a substep reads: every ``_P`` entry of ``params``
+    and the squares and reciprocal derived from them."""
     sc = {k: params[i] for k, i in _P.items()}
     sc.update(
         horizon_r2=sc["horizon_r"] * sc["horizon_r"],
@@ -338,6 +348,43 @@ def march_torch(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int
         d_out2=sc["disk_outer"] * sc["disk_outer"],
         inv_d_out=1.0 / sc["disk_outer"],
     )
+    return sc
+
+
+def _segment(s, slots, sc, steps: int, args):
+    """``steps`` substeps on copies of the state dict and the slot list."""
+    s, slots = dict(s), list(slots)
+    for _ in range(steps):
+        _substep(s, sc, slots, *args)
+    return s, slots
+
+
+def _checkpointed_segment(s, slots, sc, steps: int, args):
+    """:func:`_segment` under ``torch.utils.checkpoint``: autograd keeps
+    only the segment's inputs and recomputes its substeps in the backward
+    pass (the reference's rematerialized leaves, march_grad.py:138-178)."""
+    keys = tuple(s)
+
+    def run(*vals):
+        st, sl = _segment(dict(zip(keys, vals)), vals[len(keys):], sc, steps, args)
+        return (*(st[k] for k in keys), *sl)
+
+    vals = checkpoint(run, *(s[k] for k in keys), *slots, use_reentrant=False,
+                      preserve_rng_state=False)
+    return dict(zip(keys, vals)), list(vals[len(keys):])
+
+
+def _run(rays: torch.Tensor, params: torch.Tensor, max_iterations: int,
+         tex_opacity_min: float, show_disk: bool, mode: int,
+         checkpointed: bool = False) -> torch.Tensor:
+    """The plain march of ``rays``: segments of SEGMENT_STEPS substeps
+    until no lane is active or ``max_iterations`` passes.  A pass over
+    inactive lanes is an identity, so stopping early is exact; the
+    all-done test is a host sync on CUDA."""
+    fin = IN_FIELDS + (MOMENTUM_FIELDS if mode == _KERR else 0)
+    if rays.shape[0] != fin:
+        raise ValueError(f"expected {fin} ray rows, got {rays.shape[0]}")
+    sc = _scalars(params)
     px, py, pz, dx, dy, dz, h, act0, amount0, steps0 = rays[:IN_FIELDS].unbind(0)
     zeros = torch.zeros_like(px)
     ox, oy, oz = px - sc["bh_x"], py - sc["bh_y"], pz - sc["bh_z"]
@@ -350,30 +397,79 @@ def march_torch(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int
     )
     if mode == _KERR:
         s.update(zip(("qx", "qy", "qz"), rays[IN_FIELDS:].unbind(0)))
-    slots = rays.new_zeros((SLOT_ROWS, n))
-    for it in range(max_iterations):
-        if it % 32 == 0 and not bool(s["act"].any()):
+    slots = [zeros] * SLOT_ROWS
+    args = (tex_opacity_min, show_disk, mode)
+    segment = _checkpointed_segment if checkpointed else _segment
+    for start in range(0, max_iterations, SEGMENT_STEPS):
+        if not bool(s["act"].any()):
             break
-        _substep(s, sc, slots, tex_opacity_min, show_disk, mode)
+        s, slots = segment(s, slots, sc, min(SEGMENT_STEPS, max_iterations - start), args)
 
-    out = rays.new_empty((out_fields(geodesics), n))
+    rows = [None] * OUT_FIXED
     for name in ("px", "py", "pz", "dx", "dy", "dz", "steps", "horizon",
                  "exited", "h", "count"):
-        out[_OUT_FIXED[name]] = s[name]
-    out[_OUT_FIXED["closest"]] = torch.sqrt(s["closest2"])
-    out[_OUT_FIXED["amount"]] = s["amount_ub"]
-    out[OUT_FIXED:OUT_FIXED + SLOT_ROWS] = slots
+        rows[_OUT_FIXED[name]] = s[name]
+    rows[_OUT_FIXED["closest"]] = torch.sqrt(s["closest2"])
+    rows[_OUT_FIXED["amount"]] = s["amount_ub"]
+    rows += slots
     if mode == _KERR:
-        out[OUT_FIXED + SLOT_ROWS:] = torch.stack([s["qx"], s["qy"], s["qz"]])
-    return out
+        rows += [s["qx"], s["qy"], s["qz"]]
+    return torch.stack(rows)
 
 
-def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
-          tex_opacity_min: float = 0.7, show_disk: bool = True,
-          integrator: str = "euler", geodesics: str = "pseudo") -> torch.Tensor:
-    """Run the march: the plain version for CPU tensors, the CUDA kernel
-    (``csrc/march.cu``, the instantiation of ``integrator`` and
-    ``geodesics``) for CUDA tensors.  ``rays`` is (in_fields(geodesics), N)."""
+def march_torch(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
+                tex_opacity_min: float = 0.7, show_disk: bool = True,
+                integrator: str = "euler", geodesics: str = "pseudo") -> torch.Tensor:
+    """Plain torch march (see the module docstring for the contract)."""
+    return _run(rays, params, max_iterations, tex_opacity_min, show_disk,
+                _mode(integrator, geodesics))
+
+
+def march_replay(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tensor, *,
+                 max_iterations: int, tex_opacity_min: float = 0.7,
+                 show_disk: bool = True, integrator: str = "euler",
+                 geodesics: str = "pseudo"):
+    """The march's vector-Jacobian product: ``(grad_rays, grad_params)``
+    for the cotangent ``grad_out`` of its (out_fields, N) output, from the
+    inputs alone (the counterpart of ``march_grad._march_bwd``).
+
+    Replays the plain substeps under autograd and pulls ``grad_out`` back
+    through them, with memory bounded two ways: lanes that enter live are
+    replayed in chunks of at most REPLAY_CHUNK_RAYS (parameter cotangents
+    summed over chunks), each in checkpointed segments of SEGMENT_STEPS
+    substeps.  Lanes that enter inactive take no substep, so they are
+    replayed apart, with none.  The kernel loops each lane until it is
+    done, and an inactive pass is an identity, so the replayed trajectory
+    is the kernel's with no step-count rounding."""
+    mode = _mode(integrator, geodesics)
+    replays[KERNEL_NAMES[mode]] += 1
+    rays, params = rays.detach(), params.detach().requires_grad_()
+    live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]])  # active, steps_done
+    grad_rays = torch.zeros_like(rays)
+    grad_params = torch.zeros_like(params)
+    batches = [((~live).nonzero()[:, 0], 0)]
+    batches += [(idx, max_iterations)
+                for idx in live.nonzero()[:, 0].split(REPLAY_CHUNK_RAYS)]
+    for idx, steps in batches:
+        if not len(idx):
+            continue
+        r = rays[:, idx].requires_grad_()
+        with torch.enable_grad():
+            out = _run(r, params, steps, tex_opacity_min, show_disk, mode,
+                       checkpointed=True)
+            gr, gp = torch.autograd.grad(out, (r, params), grad_out[:, idx],
+                                         allow_unused=True)
+        if gr is not None:
+            grad_rays[:, idx] = gr
+        if gp is not None:
+            grad_params += gp
+    return grad_rays, grad_params
+
+
+def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
+                   tex_opacity_min: float, show_disk: bool, integrator: str,
+                   geodesics: str) -> torch.Tensor:
+    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if rays.device.type == "cpu":
         return march_torch(rays, params, max_iterations=max_iterations,
                            tex_opacity_min=tex_opacity_min, show_disk=show_disk,
@@ -391,3 +487,32 @@ def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
         )
         launches[KERNEL_NAMES[mode]] += 1
     return out
+
+
+class _March(torch.autograd.Function):
+    """The march with :func:`march_replay` as its backward
+    (``march_grad.march_pallas_diff``): the forward saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, rays, params, kw):
+        ctx.kw = kw
+        ctx.save_for_backward(rays, params)
+        return _march_forward(rays, params, **kw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        return (*march_replay(*ctx.saved_tensors, grad_out, **ctx.kw), None)
+
+
+def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
+          tex_opacity_min: float = 0.7, show_disk: bool = True,
+          integrator: str = "euler", geodesics: str = "pseudo") -> torch.Tensor:
+    """Run the march: the plain version for CPU tensors, the CUDA kernel
+    (``csrc/march.cu``, the instantiation of ``integrator`` and
+    ``geodesics``) for CUDA tensors.  ``rays`` is (in_fields(geodesics), N).
+    Differentiable in ``rays`` and ``params``: the backward is
+    :func:`march_replay`, on either device."""
+    kw = dict(max_iterations=max_iterations, tex_opacity_min=tex_opacity_min,
+              show_disk=show_disk, integrator=integrator, geodesics=geodesics)
+    return _March.apply(rays, params, kw)

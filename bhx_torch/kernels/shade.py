@@ -18,6 +18,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from bhx_torch.kernels import build
 from bhx_torch.kernels.march import CROSS_FIELDS, MAX_CROSSINGS
@@ -35,6 +36,8 @@ SLOT_ROWS = MAX_CROSSINGS * CROSS_FIELDS
 ING_FIELDS = 7  # od, m, tint_r, tint_g, tint_b, u, v
 
 launches = {"composite": 0, "ingredients": 0}
+# Backward replays, by the same names.
+replays = dict.fromkeys(launches, 0)
 
 
 def pack_shade_params(black_hole, rot_mat: torch.Tensor, time) -> torch.Tensor:
@@ -118,6 +121,11 @@ def composite_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor,
                     gain: torch.Tensor, *, show_texture: bool = True,
                     show_redshift: bool = True) -> torch.Tensor:
     """Plain torch shade + composite; ``slots`` is SLOT_ROWS (N,) rows."""
+    return _composite_rows(slots, cam_dist, params, gain, show_texture, show_redshift)
+
+
+def _composite_rows(slots, cam_dist, params, gain, show_texture: bool,
+                    show_redshift: bool) -> torch.Tensor:
     p = {name: params[i] for name, i in _SP.items()}
     n = cam_dist.shape[0]
     trans = cam_dist.new_ones((n,))
@@ -130,6 +138,7 @@ def composite_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor,
         opacity = torch.clamp(od * 0.2, 0.0, 1.0)
         rgb = [od, od, od]
         if show_texture:
+            # The direct 2x2 fetch; its backward scatter-adds into ``gain``.
             gain_rgba = sample_gain(gain, u, v)
             tex_a = m * gain_rgba[3]
             rgb = [rgb[c] * m * gain_rgba[c] * tex_a for c in range(3)]
@@ -144,11 +153,30 @@ def composite_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor,
     return torch.stack(acc + [trans])
 
 
-def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
-              gain: torch.Tensor, *, show_texture: bool = True,
-              show_redshift: bool = True) -> torch.Tensor:
-    """Shade + composite: the plain version for CPU tensors, the CUDA kernel
-    (``csrc/shade.cu``) for CUDA tensors.  ``slots`` is (SLOT_ROWS, N)."""
+def _replay(counter: str, fn, inputs, grad_out, *args):
+    """The cotangents of ``inputs`` for the cotangent ``grad_out`` of
+    ``fn(*inputs, *args)``, by autograd through that plain math (the
+    reference's recompute-adjoint backward rules, shade_pallas.py:300-305,
+    551-563)."""
+    replays[counter] += 1
+    inputs = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        grads = torch.autograd.grad(fn(*inputs, *args), inputs, grad_out,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads))
+
+
+def composite_replay(slots, cam_dist, params, gain, grad_out, *, show_texture: bool = True,
+                     show_redshift: bool = True):
+    """The composite's vector-Jacobian product: the cotangents of
+    ``(slots, cam_dist, params, gain)`` for the cotangent ``grad_out`` of
+    its (4, N) output, by replaying the plain shade + composite."""
+    return _replay("composite", _composite_rows, (slots, cam_dist, params, gain),
+                   grad_out, show_texture, show_redshift)
+
+
+def _composite_forward(slots, cam_dist, params, gain, show_texture: bool,
+                       show_redshift: bool) -> torch.Tensor:
     if slots.device.type == "cpu":
         return composite_torch(slots, cam_dist, params, gain,
                                show_texture=show_texture,
@@ -173,11 +201,46 @@ def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
     return out
 
 
+class _Composite(torch.autograd.Function):
+    """The composite with :func:`composite_replay` as its backward
+    (``shade_pallas.shade_composite``)."""
+
+    @staticmethod
+    def forward(ctx, slots, cam_dist, params, gain, show_texture, show_redshift):
+        ctx.flags = (show_texture, show_redshift)
+        ctx.save_for_backward(slots, cam_dist, params, gain)
+        return _composite_forward(slots, cam_dist, params, gain, show_texture,
+                                  show_redshift)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        show_texture, show_redshift = ctx.flags
+        grads = composite_replay(*ctx.saved_tensors, grad_out, show_texture=show_texture,
+                                 show_redshift=show_redshift)
+        return (*grads, None, None)
+
+
+def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
+              gain: torch.Tensor, *, show_texture: bool = True,
+              show_redshift: bool = True) -> torch.Tensor:
+    """Shade + composite: the plain version for CPU tensors, the CUDA kernel
+    (``csrc/shade.cu``) for CUDA tensors.  ``slots`` is (SLOT_ROWS, N).
+    Differentiable in every tensor argument: the backward is
+    :func:`composite_replay`, on either device."""
+    return _Composite.apply(slots, cam_dist, params, gain, show_texture, show_redshift)
+
+
 def ingredients_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor, *,
                       show_texture: bool = True,
                       show_redshift: bool = True) -> torch.Tensor:
     """Plain torch shading ingredients of every slot, valid or not:
     (MAX_CROSSINGS * ING_FIELDS, N) rows, 7 per slot."""
+    return _ingredient_rows(slots, cam_dist, params, show_texture, show_redshift)
+
+
+def _ingredient_rows(slots, cam_dist, params, show_texture: bool,
+                     show_redshift: bool) -> torch.Tensor:
     p = {name: params[i] for name, i in _SP.items()}
     rows = []
     for k in range(MAX_CROSSINGS):
@@ -188,12 +251,17 @@ def ingredients_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor, *,
     return torch.stack(rows)
 
 
-def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
-                *, show_texture: bool = True,
-                show_redshift: bool = True) -> torch.Tensor:
-    """Per-slot shading ingredients: the plain version for CPU tensors, the
-    CUDA kernel (``csrc/shade.cu``, its ingredients variant) for CUDA
-    tensors.  ``slots`` is (SLOT_ROWS, N); the result (K*7, N)."""
+def ingredients_replay(slots, cam_dist, params, grad_out, *, show_texture: bool = True,
+                       show_redshift: bool = True):
+    """The ingredients' vector-Jacobian product: the cotangents of
+    ``(slots, cam_dist, params)`` for the cotangent ``grad_out`` of the
+    (K*7, N) output, by replaying the plain ingredients."""
+    return _replay("ingredients", _ingredient_rows, (slots, cam_dist, params),
+                   grad_out, show_texture, show_redshift)
+
+
+def _ingredients_forward(slots, cam_dist, params, show_texture: bool,
+                         show_redshift: bool) -> torch.Tensor:
     if slots.device.type == "cpu":
         return ingredients_torch(slots, cam_dist, params, show_texture=show_texture,
                                  show_redshift=show_redshift)
@@ -210,3 +278,32 @@ def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tenso
         )
         launches["ingredients"] += 1
     return out
+
+
+class _Ingredients(torch.autograd.Function):
+    """The ingredients with :func:`ingredients_replay` as its backward
+    (``shade_pallas.shade_ingredients``)."""
+
+    @staticmethod
+    def forward(ctx, slots, cam_dist, params, show_texture, show_redshift):
+        ctx.flags = (show_texture, show_redshift)
+        ctx.save_for_backward(slots, cam_dist, params)
+        return _ingredients_forward(slots, cam_dist, params, show_texture, show_redshift)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        show_texture, show_redshift = ctx.flags
+        grads = ingredients_replay(*ctx.saved_tensors, grad_out,
+                                   show_texture=show_texture, show_redshift=show_redshift)
+        return (*grads, None, None)
+
+
+def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
+                *, show_texture: bool = True,
+                show_redshift: bool = True) -> torch.Tensor:
+    """Per-slot shading ingredients: the plain version for CPU tensors, the
+    CUDA kernel (``csrc/shade.cu``, its ingredients variant) for CUDA
+    tensors.  ``slots`` is (SLOT_ROWS, N); the result (K*7, N).
+    Differentiable: the backward is :func:`ingredients_replay`."""
+    return _Ingredients.apply(slots, cam_dist, params, show_texture, show_redshift)

@@ -265,7 +265,10 @@ def fxaa_pass_chw(chw: torch.Tensor, cfg: FxaaConfig) -> torch.Tensor:
     )
     sub2 = (-2.0 * sub1 + 3.0) * sub1 * sub1
     sub_final = sub2 * sub2 * cfg.subpixel_quality
-    t = torch.maximum(final_offset, sub_final)
+    # The blend weight is a filter decision, not radiance: gradients flow
+    # through the resampled colors only, as the reference stops them
+    # (bhx/post.py:364-373).
+    t = torch.maximum(final_offset, sub_final).detach()
 
     # Final resample: a sub-texel lerp along the perpendicular axis.
     def resample(chan):

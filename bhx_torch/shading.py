@@ -26,8 +26,16 @@ def sample_gain(grid: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     iy0 = y0.long()
     ix1 = torch.clamp(ix0 + 1, max=gw - 1)
     iy1 = torch.clamp(iy0 + 1, max=gh - 1)
-    top = grid[iy0, ix0] * (1.0 - fx) + grid[iy0, ix1] * fx
-    bot = grid[iy1, ix0] * (1.0 - fx) + grid[iy1, ix1] * fx
+    # index_select on the flat grid: its backward is an atomic index_add_
+    # into the few texels, where advanced indexing's sorts millions of
+    # duplicate indices on CUDA.
+    texels = grid.reshape(gh * gw, -1)
+
+    def fetch(iy, ix):
+        return texels.index_select(0, (iy * gw + ix).reshape(-1)).reshape(u.shape + (-1,))
+
+    top = fetch(iy0, ix0) * (1.0 - fx) + fetch(iy0, ix1) * fx
+    bot = fetch(iy1, ix0) * (1.0 - fx) + fetch(iy1, ix1) * fx
     return (top * (1.0 - fy) + bot * fy).unbind(-1)
 
 

@@ -28,7 +28,26 @@ Phases, each printed as it finishes:
 4b. the same for the Kerr spin-0.9 frame and the RK45 frame;
 5. a dense 192x108 frame on the card against the plain path on the CPU
    (bad-pixel fraction at 2e-2, gated at 2%);
-5b. the same for Kerr spin 0.9 (gated at 3%) and RK45 (2%).
+5b. the same for Kerr spin 0.9 (gated at 3%) and RK45 (2%);
+6. ``bhx_torch.bench.grad_check`` at its defaults (320x180): reverse-mode
+   d/dmass through the kernels' forward and their replayed backward
+   against Richardson-extrapolated central differences, gated on
+   ``grad_ok``, with the march, composite and sky kernels launched and the
+   march replayed during the call;
+6b. the gradient of one fixed weighted-pixel loss with respect to every
+   fitted scene parameter and ``disk_gain`` at 64x36 (dense, 300
+   iterations), on the card (kernel forward, replayed backward) against
+   the plain path on the CPU, for Euler, RK45 and Kerr spin 0.9, with the
+   weights zero off the FD-stable pixels and where the two forwards part
+   (``checks.compare_gradients``): each parameter's largest error under
+   1e-3 of its largest entry;
+6c. ``bhx_torch.parallel.fit_scene`` at ``bhx fit``'s defaults (1918x1081,
+   no ladder, no bloom or FXAA, tonemap, 400 iterations, Euler, Adam at
+   lr 1e-2) without the star sky: 3 steps from the default scene (mass 0.5) toward the port's
+   own render at mass 0.6, each step timed with CUDA events, with its
+   peak memory and its launches and replays; gated on finite, falling
+   losses, the mass moving toward 0.6, and the march, composite and sky
+   kernels launched and the march replayed in every step.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is the device record.  Exits non-zero, printing neither, when
@@ -61,20 +80,25 @@ def main() -> int:
     except ImportError as e:
         _die(f"cannot import bhx_torch ({e}); run from the repository root")
 
+    import numpy as np
+
     from bhx_torch import checks
-    from bhx_torch.bench import run_bench
+    from bhx_torch.bench import grad_check, run_bench
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
-    from bhx_torch.kernels import build, launch_counts, reset_launch_counts
+    from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
     from bhx_torch.kernels import shade, sky
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS
+    from bhx_torch.parallel import apply_params, fit_scene, scene_params
     from bhx_torch.pipeline import ladder_trace_rows, render, trace_image_record_rows
     from bhx_torch.scene import Scene, with_spin
     from bhx_torch.tracer import first_march_batch
 
     failures = []
+    start = time.perf_counter()
 
     def check(name: str, ok: bool, info: dict) -> None:
         shown = {k: v for k, v in info.items() if k != "out"}
+        shown["at_s"] = round(time.perf_counter() - start, 1)
         print(f"{name}: {'ok' if ok else 'FAIL'} {json.dumps(shown)}", flush=True)
         if not ok:
             failures.append(name)
@@ -220,6 +244,66 @@ def main() -> int:
         check(name, bool(torch.isfinite(on_card).all()) and bad <= gate,
               dict(bad_frac=bad, gate=gate,
                    max_abs_err=float((on_card - on_cpu).abs().max())))
+
+    # --- 6. the gradient gate on the card ---
+    path = ("march", "composite", "sky")
+    reset_launch_counts()
+    gc = grad_check()
+    torch.cuda.synchronize()
+    gc_launches, gc_replays = launch_counts(), replay_counts()
+    check("grad_check 320x180", gc["grad_ok"] and all(gc_launches[k] > 0 for k in path)
+          and all(gc_replays[k] > 0 for k in path),
+          dict(gc, launches=gc_launches, replays=gc_replays))
+
+    # --- 6b. the card's gradient against the plain path on the CPU ---
+    grad_cfg = RenderConfig(width=64, height=36, use_ladder=False, max_iterations=300,
+                            bloom=BloomConfig(enabled=False),
+                            fxaa=FxaaConfig(enabled=False))
+    for name, g_scene, g_cfg in (
+            ("euler", scene, grad_cfg),
+            ("rk45", scene, grad_cfg.replace(integrator=Integrator.RK45)),
+            ("kerr(spin=0.9)", kerr_scene, grad_cfg.replace(geodesics="kerr"))):
+        r = checks.compare_gradients(g_scene, g_cfg)
+        check(f"grad 64x36 card vs cpu {name}", r["ok"], r)
+
+    # --- 6c. fit_scene at bhx fit's defaults ---
+    # Without the star sky: a splat (radius 2.4e-3 uv) has slopes that no
+    # 1e-2 step sees, and at this size they outweigh the rest of the
+    # gradient (AD d/dmass +4.2 against FD -0.079 with the sky, -0.080 /
+    # -0.077 without), the reason bhx's own grad_check renders without it.
+    fit_cfg = RenderConfig(width=1918, height=1081, use_ladder=False, max_iterations=400,
+                           bloom=BloomConfig(enabled=False),
+                           fxaa=FxaaConfig(enabled=False), tonemap=True, show_sky=False)
+    target = render(apply_params(scene, dict(scene_params(scene), mass=0.6)),
+                    fit_cfg).detach()
+    steps = []
+    marks = [torch.cuda.Event(enable_timing=True)]
+
+    def on_step(i: int, loss: float) -> None:
+        # The counts and the peak are zeroed just before each step and read
+        # just after it.
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        steps.append(dict(step=i, loss=loss, s=marks[-1].elapsed_time(end) / 1e3,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=launch_counts(), replays=replay_counts()))
+        print(f"fit step {i}: {json.dumps(steps[-1])}", flush=True)
+        marks.append(end)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    marks[0].record()
+    fitted, losses = fit_scene(scene, target, fit_cfg, steps=3, lr=1e-2, callback=on_step)
+    mass = float(fitted["mass"])
+    check("fit_scene 1918x1081 3 steps",
+          all(np.isfinite(losses)) and losses[-1] < losses[0] and 0.5 < mass < 0.6
+          and all(st["launches"][k] > 0 for st in steps for k in path)
+          and all(st["replays"]["march"] > 0 for st in steps),
+          dict(losses=losses, mass=mass, s_per_step=[st["s"] for st in steps],
+               peak_mem_gb=max(st["peak_mem_gb"] for st in steps)))
 
     if failures:
         _die("failed phases: " + ", ".join(failures))

@@ -1,5 +1,6 @@
 """Card-only tests: each CUDA kernel of bhx_torch against its plain torch
-version on the card, and proof that CUDA tensors launch the kernels.
+version on the card, proof that CUDA tensors launch the kernels (with and
+without autograd), and the card's gradient against the CPU's.
 Every test here is marked ``gpu`` and skips without a CUDA device.
 
 On a machine with a card (the root conftest.py imports jax, which such a
@@ -10,12 +11,14 @@ machine need not have):
 
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 import bhx_torch
 from bhx_torch import checks
-from bhx_torch.kernels import launch_counts
+from bhx_torch.kernels import launch_counts, replay_counts, reset_launch_counts
 from bhx_torch.kernels import march as tmarch
 from bhx_torch.kernels import shade as tshade
 from bhx_torch.kernels import sky as tsky
@@ -73,7 +76,10 @@ def test_rk45_and_kerr_marches_match_plain(frame, branch):
         assert launch_counts()[f"march_{branch}"] == before + 1
 
 
-def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch):
+@pytest.mark.parametrize("requires_grad", [False, True], ids=["forward", "backward"])
+def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch, requires_grad):
+    """The forward launches the kernels, under autograd too; the backward
+    launches none and reaches only the replay entries."""
     scene, cfg = frame
 
     def boom(*args, **kwargs):
@@ -82,15 +88,26 @@ def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch):
     for mod, name in ((tmarch, "march_torch"), (tshade, "composite_torch"),
                       (tsky, "sky_rows_torch")):
         monkeypatch.setattr(mod, name, boom)
-    before = launch_counts()
+    if requires_grad:
+        mass = scene.black_hole.mass.detach().clone().requires_grad_()
+        scene = dataclasses.replace(scene, black_hole=dataclasses.replace(
+            scene.black_hole, mass=mass))
+    reset_launch_counts()
     img = bhx_torch.render(scene, cfg.replace(width=96, height=54, use_ladder=False))
     torch.cuda.synchronize()
     after = launch_counts()
     assert img.is_cuda and bool(torch.isfinite(img).all())
     # Two march rounds, one composite, one sky pass.
-    assert after["march"] - before["march"] == 2
-    assert after["composite"] - before["composite"] == 1
-    assert after["sky"] - before["sky"] == 1
+    assert after["march"] == 2
+    assert after["composite"] == 1
+    assert after["sky"] == 1
+    if requires_grad:
+        (g,) = torch.autograd.grad(img.sum(), mass)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(g)) and float(g) != 0.0
+        assert launch_counts() == after
+        replays = replay_counts()
+        assert (replays["march"], replays["composite"], replays["sky"]) == (2, 1, 1)
 
 
 def test_small_frame_matches_cpu(frame):
@@ -104,3 +121,21 @@ def test_small_frame_matches_cpu(frame):
     on_cpu = bhx_torch.render(scene.to("cpu"), cfg)
     bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
     assert bad <= 0.02, bad
+
+
+def test_small_frame_gradient_matches_cpu(frame):
+    """The gradient of one fixed weighted-pixel loss with respect to every
+    fitted scene parameter and ``disk_gain`` at 96x54 (dense, 300
+    iterations, no tonemap): the card (kernel forward, replayed backward)
+    against the plain path on the CPU, each parameter within 1e-3 of its
+    largest entry (``checks.compare_gradients``: the weights are zero off
+    the FD-stable pixels and where the two forwards part)."""
+    scene, _ = frame
+    cfg = bhx_torch.RenderConfig(
+        width=96, height=54, use_ladder=False, max_iterations=300,
+        bloom=bhx_torch.BloomConfig(enabled=False),
+        fxaa=bhx_torch.FxaaConfig(enabled=False), tonemap=False,
+    )
+    r = checks.compare_gradients(scene, cfg)
+    assert r["kept_frac"] > 0.3, r
+    assert r["ok"], r

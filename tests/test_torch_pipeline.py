@@ -254,6 +254,10 @@ def test_import_and_render_pull_in_no_jax():
         "scene.black_hole, spin=torch.tensor(0.9)))\n"
         "img = bhx_torch.render(kerr, cfg.replace(geodesics='kerr'))\n"
         "assert tuple(img.shape) == (18, 32, 3) and bool(torch.isfinite(img).all())\n"
+        "import bhx_torch.bench\n"
+        "from bhx_torch.parallel import fit_scene\n"
+        "params, losses = fit_scene(scene, img.detach(), cfg, steps=1)\n"
+        "assert set(params) >= {'mass', 'cam_position'} and len(losses) == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bhx'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
