@@ -2,11 +2,10 @@
 inputs the default frame gives it.  Used by ``chip_smoke.py`` and by the
 card-only tests (``tests/test_torch_gpu.py``).
 
-Tolerances, the same as the CPU tests' against the JAX reference:
+Tolerances:
 
-* march (every branch): at most 1% of rays differ by more than 1e-3 in
-  any output row (rays near the photon sphere are chaotic, so two float
-  programs part on a few of them);
+* march (every branch): bit-identical, ``max_abs_err == 0.0`` (the kernel
+  repeats the plain version's operations in its order, ``--fmad=false``);
 * composite and ingredients: max |err| <= 1e-4;
 * sky on rows and on an interleaved record: 99.5% quantile of |err| <
   2e-3 and max < 0.2 (a star splat's edge moves with the last bit of the
@@ -19,6 +18,12 @@ Each ``compare_*`` returns a dict with ``ok``, the error figures, and the
 kernel's and the plain version's milliseconds per call (CUDA events; the
 kernel averaged over ``reps`` calls after a warm-up call, the plain
 version timed once).
+
+:func:`march_work` and :func:`serial_floor` measure a march launch
+against the card: its bound (:func:`bound`: the largest of its float
+operations at the unfused float32 rate, its special-function operations
+at theirs and its bytes at the memory rate), the SIMT efficiency of one
+thread per lane in pixel order, and its serial floor.
 """
 
 from __future__ import annotations
@@ -37,10 +42,8 @@ from bhx_torch.kernels import sky as sky_mod
 from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import final_level_retrace_mask, render
 from bhx_torch.scene import Scene
-from bhx_torch.tracer import first_march_batch, march_kwargs
+from bhx_torch.tracer import march_batch, march_kwargs
 
-MARCH_ATOL = 1e-3
-MARCH_BAD_FRAC = 0.01
 COMPOSITE_ATOL = 1e-4
 SKY_Q995 = 2e-3
 SKY_MAX = 0.2
@@ -67,12 +70,14 @@ def _timed(fn: Callable, reps: int = 1) -> Tuple[torch.Tensor, float]:
     return out, start.elapsed_time(end) / reps
 
 
-def last_level_batch(scene: Scene, cfg: RenderConfig):
-    """:func:`first_march_batch` of the ladder's final level, whose active
-    set is that level's re-trace mask: the largest march launch of a frame."""
+def last_level_batch(scene: Scene, cfg: RenderConfig, march_round: int = 0):
+    """:func:`march_batch` of the ladder's final level, whose active
+    set is that level's re-trace mask: ``march_round`` 0 is the largest
+    march launch of a frame, 1 the re-entry launch after it."""
     lad = cfg.ladder_for_output()
     w, h = lad.resolution(lad.levels - 1)
-    return first_march_batch(scene, cfg, w, h, active=final_level_retrace_mask(scene, cfg))
+    return march_batch(scene, cfg, w, h, active=final_level_retrace_mask(scene, cfg),
+                       march_round=march_round)
 
 
 def shade_params(scene: Scene) -> torch.Tensor:
@@ -81,15 +86,151 @@ def shade_params(scene: Scene) -> torch.Tensor:
 
 
 def compare_march(rays, params, cfg: RenderConfig, reps: int = 1) -> Dict:
+    """The march kernel against its plain version (bit-identical), with the
+    launch's work and bound (:func:`march_work`)."""
     kw = march_kwargs(cfg)
     got, ms = _timed(lambda: march_mod.march(rays, params, **kw), reps)
     want, plain_ms = _timed(lambda: march_mod.march_torch(rays, params, **kw))
     err = (got - want).abs()
-    bad = float((err > MARCH_ATOL).any(0).float().mean())
+    max_err = float(err.max()) if err.numel() else 0.0
     finite = bool(torch.isfinite(got).all())
-    return dict(n=rays.shape[1], active=int((rays[7] > 0.5).sum()), bad_frac=bad,
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                ok=finite and bad <= MARCH_BAD_FRAC, out=got)
+    kernel = march_mod.KERNEL_NAMES[march_mod._mode(kw["integrator"], kw["geodesics"])]
+    return dict(march_work(rays, params, want, kernel),
+                diff_frac=float((got != want).any(0).float().mean()) if got.numel() else 0.0,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                ok=finite and max_err == 0.0, out=got)
+
+
+# Float operations of one march substep (adds, subtracts, multiplies,
+# divisions, square roots, reciprocal square roots, min, max, abs; no
+# compare or select), counted by hand from csrc/march.cu's substep with the
+# disk branch on and a crossing's extra work (its slot record and the
+# transmission bound) left out: Euler 22 (relative position, angular
+# momentum, r^2) + 32 (step) + 12 (horizon) + 29 (disk plane) + 11 (advance,
+# closest, budget); RK45 22 + 303 (six forces at 18, stage sums 105, the
+# 4th/5th-order sums and error 51, controller 17, direction and position
+# 22) + 12 + 29 + 11; Kerr 3 + 4 x 190 (a right-hand side: Kerr-Schild
+# scalars 34, null-vector product 7, dx 6, three dH/dx at 47 and 2
+# arguments) + 119 (step size 7, stage sums 79, chord 17, capture radius
+# 16) + 29 + 11.  Of them, how many run on the special-function unit
+# (rsqrt, sqrt, division): Euler 4, RK45 12, Kerr 4 x 36 + 6.
+SUBSTEP_OPS = {"march": 106, "march_rk45": 377, "march_kerr": 922}
+SUBSTEP_MUFU = {"march": 4, "march_rk45": 12, "march_kerr": 150}
+# NVIDIA H100 SXM (data sheet, 700 W).  Its 67 TFLOP/s of float32 outside
+# the tensor cores counts a fused multiply-add as two operations; the
+# kernels are built with --fmad=false, so each add and multiply takes an
+# issue slot alone, at half that rate: 128 a clock on each of 132 SMs at
+# the 1980 MHz boost clock.  The special-function unit gives 16 results a
+# clock an SM; HBM3 moves 3.35 TB/s.
+PEAK_F32_OPS = 132 * 128 * 1.98e9
+PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: float, nbytes: float, mufu: float = 0.0) -> Dict:
+    """The least time the card could take: the largest of ``ops`` unfused
+    float32 operations at PEAK_F32_OPS, ``mufu`` of them (those on the
+    special-function unit) at PEAK_MUFU_PER_S, and ``nbytes`` at the
+    memory rate.  ``bound_by`` is "operations" or "bytes";
+    ``bound_ceiling`` names the ceiling: "float32", "special-function" or
+    "bytes"."""
+    ceilings = {"float32": ops / PEAK_F32_OPS * 1e3,
+                "special-function": mufu / PEAK_MUFU_PER_S * 1e3,
+                "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    ceiling = max(ceilings, key=ceilings.get)
+    return dict(bound_ms=ceilings[ceiling],
+                bound_by="bytes" if ceiling == "bytes" else "operations",
+                bound_ceiling=ceiling, ops_ms=ceilings["float32"],
+                mufu_ms=ceilings["special-function"], bytes_ms=ceilings["bytes"])
+
+
+def march_work(rays, params, out, kernel: str) -> Dict:
+    """The work of one march launch, from its inputs and its output: the
+    live lanes, the sum and the largest of the ``steps`` row (the
+    lane-substeps the work needs), the SIMT efficiency of one thread per
+    lane in pixel order (sum of steps over 32 x the sum over consecutive
+    32-lane warps of the warp's largest), and the bound (:func:`bound`):
+    sum(steps) x SUBSTEP_OPS[kernel] operations, SUBSTEP_MUFU[kernel] of
+    each substep's on the special-function unit, and (in rows + out rows)
+    x 4 x N bytes."""
+    n = rays.shape[1]
+    live = (rays[7] > 0.5) & (rays[9] < params[march_mod._P["budget"]])
+    steps = out[march_mod._OUT_FIXED["steps"]].double()
+    total = float(steps.sum())
+    warp_max = torch.nn.functional.pad(steps, (0, (-n) % 32)).reshape(-1, 32).amax(1)
+    issued = 32.0 * float(warp_max.sum())
+    r = dict(n=n, live=int(live.sum()), steps_sum=total,
+             steps_max=float(steps.max()) if n else 0.0,
+             simt_eff=total / issued if issued else None,
+             **bound(total * SUBSTEP_OPS[kernel], (rays.shape[0] + out.shape[0]) * 4.0 * n,
+                     total * SUBSTEP_MUFU[kernel]))
+    return r
+
+
+def serial_floor(rays, params, out, march_fn: Callable, reps: int = 10) -> Dict:
+    """The serial floor of a launch: the lane with the most steps marched
+    alone, in a batch of one, by ``march_fn(rays, params)`` (CUDA events,
+    ``reps`` calls after a warm-up): its steps x one substep's latency,
+    plus one launch's fixed cost.  No assignment of rays to threads beats
+    it."""
+    steps = out[march_mod._OUT_FIXED["steps"]]
+    if not steps.numel() or float(steps.max()) == 0.0:
+        return dict(serial_floor_ms=0.0, floor_steps=0.0, substep_ns=None)
+    j = int(steps.argmax())
+    _, ms = _timed(lambda: march_fn(rays[:, j:j + 1].contiguous(), params), reps)
+    return dict(serial_floor_ms=ms, floor_steps=float(steps[j]),
+                substep_ns=ms * 1e6 / float(steps[j]))
+
+
+# Operations of the shade and sky kernels (csrc/shade.cu, csrc/sky.cu,
+# procedural.cuh), counted by hand as the march's are, with integer hash
+# operations counted like float ones and libdevice's atan2f, sinf, cosf,
+# expf and logf at ~25 each: a slot's optical depth ~61, its texture ~767
+# (a spiral-warped texel of four Perlin octaves at ~140, two atan2 and
+# sin/cos pairs), its redshift ~98 (the tint polynomial of three
+# channels), the composite of a valid slot ~109 more (the 2x2 gain fetch,
+# the blend); a sky pixel ~1200 (two atan2, two Perlin octaves of nebula,
+# nine star cells of four hashes and a sine each).
+SLOT_OD_OPS, SLOT_TEXTURE_OPS, SLOT_REDSHIFT_OPS, COMPOSITE_OPS = 61, 767, 98, 109
+SKY_PIXEL_OPS = 1200
+
+
+def _slot_ops(cfg: RenderConfig) -> int:
+    return (SLOT_OD_OPS + SLOT_TEXTURE_OPS * bool(cfg.show_disk_texture)
+            + SLOT_REDSHIFT_OPS * bool(cfg.show_redshift))
+
+
+def composite_bound(slots, cfg: RenderConfig) -> Dict:
+    """The composite's bound on these slots: it must read slot 0's valid
+    row of every ray, and for each valid slot its five shaded rows
+    (hit point, dx, dz), the next slot's valid row and, once a ray, its
+    camera distance; it writes 4 rows; it shades each valid slot."""
+    n = slots.shape[1]
+    valid = torch.stack([slots[k * march_mod.CROSS_FIELDS + 6] > 0.5
+                         for k in range(march_mod.MAX_CROSSINGS)])
+    v = float(valid.sum())
+    rays_with = float(valid[0].sum())
+    return bound(v * (_slot_ops(cfg) + COMPOSITE_OPS),
+                 4.0 * (5 * n + 6 * v + rays_with))
+
+
+def ingredients_bound(slots, cfg: RenderConfig) -> Dict:
+    """The ingredients variant shades every slot, valid or not: 5 rows in
+    a slot and the camera distance read, 28 rows written."""
+    n = slots.shape[1]
+    return bound(float(n) * march_mod.MAX_CROSSINGS * _slot_ops(cfg),
+                 4.0 * n * (march_mod.MAX_CROSSINGS * 5 + 1 + march_mod.SLOT_ROWS))
+
+
+def sky_bound(record, cfg: RenderConfig) -> Dict:
+    """The sky pass's bound on this record, (8, N) rows or (N, 8): every
+    pixel's color and amount read and its color written; a pixel that sees
+    the sky (amount > 0.001) also reads its direction and costs
+    SKY_PIXEL_OPS."""
+    amount = record[4] if record.shape[0] == 8 else record[:, 4]
+    n = amount.numel()
+    sky = float((amount > 0.001).sum()) if cfg.show_sky else 0.0
+    return bound(sky * SKY_PIXEL_OPS, 4.0 * (7 * n + 3 * sky))
 
 
 def compare_ingredients(slots, cam_dist, params, cfg: RenderConfig,
@@ -101,7 +242,7 @@ def compare_ingredients(slots, cam_dist, params, cfg: RenderConfig,
     err = float((got - want).abs().max())
     finite = bool(torch.isfinite(got).all())
     return dict(n=slots.shape[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                ok=finite and err <= COMPOSITE_ATOL)
+                **ingredients_bound(slots, cfg), ok=finite and err <= COMPOSITE_ATOL)
 
 
 def compare_composite(slots, cam_dist, params, gain, cfg: RenderConfig,
@@ -114,7 +255,7 @@ def compare_composite(slots, cam_dist, params, gain, cfg: RenderConfig,
     err = float((got - want).abs().max())
     finite = bool(torch.isfinite(got).all())
     return dict(n=slots.shape[1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                ok=finite and err <= COMPOSITE_ATOL)
+                **composite_bound(slots, cfg), ok=finite and err <= COMPOSITE_ATOL)
 
 
 def _compare_sky(kernel: Callable, plain: Callable, rec, cfg: RenderConfig,
@@ -125,7 +266,7 @@ def _compare_sky(kernel: Callable, plain: Callable, rec, cfg: RenderConfig,
     q995 = float(torch.quantile(err, 0.995))
     finite = bool(torch.isfinite(got).all())
     return dict(n=want.numel() // 3, q995_abs_err=q995, max_abs_err=float(err.max()),
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, plain_ms=plain_ms, **sky_bound(rec, cfg),
                 ok=finite and q995 < SKY_Q995 and float(err.max()) < SKY_MAX)
 
 

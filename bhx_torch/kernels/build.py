@@ -41,9 +41,10 @@ _F32 = ctypes.c_float
 # C signatures; every entry point also takes the stream last and returns
 # cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # rays, params, out, n, max_iterations, tex_opacity_min, show_disk,
-    # mode (0 Euler, 1 RK45, 2 Kerr)
-    "bhx_march": (_P, _P, _P, _I64, _I32, _F32, _I32, _I32),
+    # rays, params, out, queue (N int32 of scratch), counters (3 int32,
+    # zero), n, max_iterations, tex_opacity_min, show_disk, mode (0 Euler,
+    # 1 RK45, 2 Kerr)
+    "bhx_march": (_P, _P, _P, _P, _P, _I64, _I32, _F32, _I32, _I32),
     # slots, cam_dist, params, gain, gain_h, gain_w, tint, out, n,
     # show_texture, show_redshift
     "bhx_composite": (_P, _P, _P, _P, _I32, _I32, _P, _P, _I64, _I32, _I32),
@@ -63,41 +64,50 @@ def _nvcc() -> str:
     return path
 
 
-def _tag() -> str:
+def _tag(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(_CSRC.glob("*.cu*")):
+    for p in sorted(sources):
         h.update(p.name.encode())
+        h.update(p.read_bytes())
+    for p in sorted(_CSRC.glob("*.cuh")):
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def log_path() -> Path:
-    """The nvcc output (ptxas register and spill report) of the build."""
-    return BUILD_DIR / f"nvcc_{_tag()}.log"
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
-    tag = _tag()
-    so = BUILD_DIR / f"libbhx_torch_{tag}.so"
+def log_path(sources=None) -> Path:
+    """The nvcc output (ptxas register and spill report) of the build of
+    ``sources`` (the package's by default)."""
+    return BUILD_DIR / f"nvcc_{_tag(sources or _sources())}.log"
+
+
+def compile_library(sources, signatures, name: str = "libbhx_torch") -> ctypes.CDLL:
+    """Build ``sources`` (``.cu`` paths; ``csrc/`` on the include path)
+    into one shared library under BUILD_DIR, unless a build of the same
+    sources and flags is there, load it, and bind each entry point of
+    ``signatures`` (name -> argument types; the stream is appended)."""
+    tag = _tag(sources)
+    so = BUILD_DIR / f"{name}_{tag}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
-            tmp = BUILD_DIR / f"libbhx_torch_{tag}.{os.getpid()}.tmp"
+            tmp = BUILD_DIR / f"{name}_{tag}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-                   *map(str, sorted(_CSRC.glob("*.cu")))]
+                   *map(str, sorted(sources))]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            log_path().write_text(proc.stdout + proc.stderr)
+            (BUILD_DIR / f"nvcc_{tag}.log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}"
                 )
             os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes) + [_P]
         fn.restype = ctypes.c_int
     lib.bhx_error_string.argtypes = [ctypes.c_int]
@@ -105,10 +115,22 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    return compile_library(_sources(), _SIGNATURES)
+
+
 def launch(name: str, *args) -> None:
-    """Call entry point ``name`` on the current stream; tensors go in as
-    device pointers.  Raises if the launch reports a CUDA error."""
-    lib = library()
+    """Call entry point ``name`` of the kernel library on the current
+    stream; tensors go in as device pointers.  Raises if the launch reports
+    a CUDA error."""
+    call(library(), name, *args)
+
+
+def call(lib: ctypes.CDLL, name: str, *args) -> None:
+    """:func:`launch` of entry point ``name`` of ``lib``, a library from
+    :func:`compile_library`."""
     dev = next(a.device for a in args if torch.is_tensor(a))
     c_args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -478,11 +478,18 @@ def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: 
     build.check_rows(rays, in_fields(geodesics), "rays")
     build.check_vector(params, NUM_PARAMS, rays.device, "params")
     n = rays.shape[1]
+    if n >= 2 ** 31:
+        raise ValueError(f"rays: at most 2^31 - 1 lanes, got {n}")
     out = torch.empty((out_fields(geodesics), n), dtype=torch.float32,
                       device=rays.device)
     if n:
+        # The kernel's scratch, allocated on every call: the queue of live
+        # lanes and its three counters, zeroed (the kernel allocates
+        # nothing).
+        queue = torch.empty((n,), dtype=torch.int32, device=rays.device)
+        counters = torch.zeros((3,), dtype=torch.int32, device=rays.device)
         build.launch(
-            "bhx_march", rays, params, out, n, int(max_iterations),
+            "bhx_march", rays, params, out, queue, counters, n, int(max_iterations),
             float(tex_opacity_min), int(show_disk), mode,
         )
         launches[KERNEL_NAMES[mode]] += 1

@@ -1,8 +1,12 @@
 """Scene state as tensor dataclasses (counterpart of ``bhx/scene.py``).
 
-Every leaf is a float32 tensor on one explicit device; ``to(device)``
-moves a whole scene.  The procedural main path never reads the baked
-disk/sky/LUT textures of ``bhx.Scene``, so they are not carried here.
+Every leaf is a float32 tensor on one device; ``to(device)`` moves a
+whole scene.  The constructors (``Scene.default``, ``Camera.default``,
+``BlackHole.default``, :func:`scene_from_state`) put it on the CUDA card
+unless given another device, and raise when there is no card: the CPU
+(the plain versions of the kernels) is asked for by name.  The
+procedural main path never reads the baked disk/sky/LUT textures of
+``bhx.Scene``, so they are not carried here.
 """
 
 from __future__ import annotations
@@ -15,7 +19,19 @@ import numpy as np
 import torch
 
 
-def _f32(x, device=None) -> torch.Tensor:
+def _device(device) -> torch.device:
+    """``device``, or the CUDA card when it is None; raises when the card
+    is asked for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "bhx_torch: no CUDA card is available; pass device='cpu' to run "
+            "the plain versions on the CPU"
+        )
+    return device
+
+
+def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
@@ -50,6 +66,7 @@ class Camera(_TensorData):
     @staticmethod
     def default(device=None) -> "Camera":
         # Reference defaults: pos (0,0,-19), forward +z, fov 1 rad.
+        device = _device(device)
         return Camera(
             position=_f32([0.0, 0.0, -19.0], device),
             forward=_f32([0.0, 0.0, 1.0], device),
@@ -74,6 +91,7 @@ class BlackHole(_TensorData):
 
     @staticmethod
     def default(device=None) -> "BlackHole":
+        device = _device(device)
         return BlackHole(
             position=_f32([0.0, 0.0, 0.0], device),
             mass=_f32(0.5, device),
@@ -140,6 +158,7 @@ class Scene(_TensorData):
 
     @staticmethod
     def default(device=None) -> "Scene":
+        device = _device(device)
         return Scene(
             camera=Camera.default(device),
             black_hole=BlackHole.default(device),
@@ -161,7 +180,9 @@ def scene_from_state(state: Mapping, device=None) -> Scene:
     ``bhx.scene.scene_to_state`` returns, so both packages render the same
     scene.  The baked textures and materials in ``state`` are not used by
     the procedural path and are ignored; a ``None`` gain becomes the
-    all-ones identity grid."""
+    all-ones identity grid.  On the CUDA card unless ``device`` names
+    another."""
+    device = _device(device)
 
     def build(cls, sub):
         return cls(**{

@@ -329,22 +329,31 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
     ])
 
 
-def first_march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
-                      active: torch.Tensor = None):
-    """(rays (10 or 13, N), params, cam_dist (N,)) of the first march launch of a
-    (width, height) trace: the camera rays after the first straight phase,
-    with ``active`` (optional flat bool mask) as in
+def march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
+                active: torch.Tensor = None, march_round: int = 0):
+    """(rays (10 or 13, N), params, cam_dist (N,)) of march launch
+    ``march_round`` (0 or 1) of a (width, height) trace: the camera rays
+    after the first straight phase, and for round 1 after the first march
+    and the second straight phase, with ``active`` (optional flat bool
+    mask) as in
     :func:`trace_rays_record_rows`.  Holds the kernel to its plain version
     on inputs a frame gives it."""
+    if not 0 <= march_round < DEFAULT_ROUNDS:
+        raise ValueError(f"march_round must be in [0, {DEFAULT_ROUNDS}), got {march_round}")
     bh = scene.black_hole
     o, d = camera_rays(scene.camera, width, height)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     state = _init_state(o, d)
     if active is not None:
         state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
-    rays, _ = _march_inputs(_straight_phase(state, bh, cfg), cfg)
     _, normal = bh.disk_frame()
-    return rays, pack_params(bh, normal, cfg), _norm(o - bh.position)
+    params = pack_params(bh, normal, cfg)
+    state = _straight_phase(state, bh, cfg)
+    for r in range(march_round):
+        state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
+        state = _straight_phase(state, bh, cfg)
+    rays, _ = _march_inputs(state, cfg)
+    return rays, params, _norm(o - bh.position)
 
 
 def crossing_overflow_stats(scene: Scene, cfg: RenderConfig, width: int,

@@ -14,11 +14,20 @@ Phases, each printed as it finishes:
    march on the 72x41 ladder level 0 and on a dense 640x361 batch, the
    composite, the slot ingredients, the sky on record rows and on an
    interleaved record, all on that trace, then march, composite and sky at
-   the default frame's own shapes (the last ladder level and the final
-   frame), timed with CUDA events beside their plain versions;
+   the default frame's own shapes (the last ladder level's two march
+   launches, round 0 and the re-entry round 1, and the final frame), timed
+   with CUDA events beside their plain versions; every march bit-identical
+   to its plain version (max |err| 0.0).  Each last-level march line
+   carries its live lanes, the sum and largest of its ``steps`` row, the
+   SIMT efficiency of one thread per lane in pixel order, its bound
+   (``checks.march_work``: float operations at the unfused float32 rate,
+   special-function operations at theirs or bytes at the memory rate,
+   whichever is largest, with ``bound_by`` and ``bound_ceiling``) and the
+   kernel's share of it, and its serial floor (``checks.serial_floor``);
+   every kernel line its bound;
 3b. the RK45 march and the Kerr march (spin 0.9) the same way, at 72x41,
    640x361 (with the composite of the Kerr trace's slots) and the last
-   ladder level;
+   ladder level's two launches;
 3c. the slot-ingredients and interleaved-sky kernels, which lie on no
    render path, driven once through their entry points;
 4. the default 1918x1081 frame through ``bhx_torch.bench.run_bench``:
@@ -49,8 +58,11 @@ Phases, each printed as it finishes:
    losses, the mass moving toward 0.6, and the march, composite and sky
    kernels launched and the march replayed in every step.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is the device record.  Exits non-zero, printing neither, when
+The second-to-last line is a JSON object with one entry per kernel (its
+launches in the frames of phase 4, its launches per frame, max |err|,
+ms, plain ms, bound ms and what bounds it; no single PyTorch call
+computes any of them, so ``library_ms`` is null); the last line is the
+device record.  Exits non-zero, printing neither, when
 there is no CUDA device, when ``bhx_torch`` cannot be imported, or when
 any phase fails.
 """
@@ -87,11 +99,11 @@ def main() -> int:
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
     from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
     from bhx_torch.kernels import shade, sky
-    from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS
+    from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
     from bhx_torch.parallel import apply_params, fit_scene, scene_params
     from bhx_torch.pipeline import ladder_trace_rows, render, trace_image_record_rows
     from bhx_torch.scene import Scene, with_spin
-    from bhx_torch.tracer import first_march_batch
+    from bhx_torch.tracer import march_batch, march_kwargs
 
     failures = []
     start = time.perf_counter()
@@ -128,11 +140,11 @@ def main() -> int:
     scene = Scene.default(dev)
     cfg = RenderConfig()
     w0, h0 = cfg.ladder_for_output().resolution(0)
-    rays, params, _ = first_march_batch(scene, cfg, w0, h0)
+    rays, params, _ = march_batch(scene, cfg, w0, h0)
     r = checks.compare_march(rays, params, cfg)
     check(f"march {w0}x{h0} level 0", r["ok"], r)
 
-    rays, params, cam = first_march_batch(scene, cfg, 640, 361)
+    rays, params, cam = march_batch(scene, cfg, 640, 361)
     r = checks.compare_march(rays, params, cfg)
     check("march 640x361 dense", r["ok"], r)
     dense_slots, dense_cam = r["out"][OUT_FIXED:OUT_FIXED + SLOT_ROWS], cam
@@ -148,12 +160,28 @@ def main() -> int:
     skyf_r = checks.compare_sky_finalize(interleaved, cfg, reps=10)
     check("sky_finalize 640x361 dense", skyf_r["ok"], skyf_r)
 
+    def last_level(name: str, m_scene, m_cfg) -> dict:
+        """The last ladder level's two march launches (its re-trace mask as
+        the active set; round 0, then round 1 after the first march),
+        timed against the plain march, with each one's work, bound, share
+        of it and serial floor.  Returns round 0's."""
+        kw = march_kwargs(m_cfg)
+        rounds = []
+        for rnd in (0, 1):
+            rays, params, _ = checks.last_level_batch(m_scene, m_cfg, march_round=rnd)
+            r = checks.compare_march(rays, params, m_cfg, reps=10)
+            r.update(checks.serial_floor(rays, params, r["out"],
+                                         lambda ra, pa: march(ra, pa, **kw)))
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            check(f"{name} last level" + (" round 1" if rnd else ""), r["ok"], r)
+            rounds.append(r)
+        return rounds[0]
+
     # The default frame's own shapes, timed: the last ladder level's march
-    # launch (its re-trace mask as the active set), the composite of that
-    # trace's slots, and the sky pass over the final 1918x1081 record.
-    rays, params, cam = checks.last_level_batch(scene, cfg)
-    march_r = checks.compare_march(rays, params, cfg, reps=10)
-    check("march last level", march_r["ok"], march_r)
+    # launches, the composite of that level's slots, and the sky pass over
+    # the final 1918x1081 record.
+    march_r = last_level("march", scene, cfg)
+    _, _, cam = checks.last_level_batch(scene, cfg)
     comp_r = checks.compare_composite(march_r["out"][OUT_FIXED:OUT_FIXED + SLOT_ROWS],
                                       cam, sp, scene.disk_gain, cfg, reps=10)
     check("composite last level", comp_r["ok"], comp_r)
@@ -171,10 +199,10 @@ def main() -> int:
     }
     last = {}
     for name, (b_scene, b_cfg) in branches.items():
-        rays, params, _ = first_march_batch(b_scene, b_cfg, w0, h0)
+        rays, params, _ = march_batch(b_scene, b_cfg, w0, h0)
         r = checks.compare_march(rays, params, b_cfg)
         check(f"march_{name} {w0}x{h0} level 0", r["ok"], r)
-        rays, params, cam = first_march_batch(b_scene, b_cfg, 640, 361)
+        rays, params, cam = march_batch(b_scene, b_cfg, 640, 361)
         r = checks.compare_march(rays, params, b_cfg)
         check(f"march_{name} 640x361 dense", r["ok"], r)
         if name == "kerr":
@@ -182,9 +210,7 @@ def main() -> int:
                                          checks.shade_params(b_scene),
                                          b_scene.disk_gain, b_cfg)
             check("composite 640x361 dense kerr", r["ok"], r)
-        rays, params, _ = checks.last_level_batch(b_scene, b_cfg)
-        last[name] = checks.compare_march(rays, params, b_cfg, reps=10)
-        check(f"march_{name} last level", last[name]["ok"], last[name])
+        last[name] = last_level(f"march_{name}", b_scene, b_cfg)
 
     # --- 3c. the kernels on no render path, through their entry points ---
     reset_launch_counts()
@@ -219,14 +245,14 @@ def main() -> int:
             for k in counts)
         check(name, img_ok and counts_ok,
               dict(bench, shape=list(img.shape), mean=float(img.mean())))
-        return counts
+        return bench
 
-    counts = frame_phase("frame 1918x1081", "march", iters=5)
+    euler = frame_phase("frame 1918x1081", "march", iters=5)
     # --- 4b. the Kerr spin-0.9 frame and the RK45 frame ---
-    counts_kerr = frame_phase("frame 1918x1081 kerr(spin=0.9)", "march_kerr", iters=3,
-                              geodesics="kerr", spin=0.9)
-    counts_rk45 = frame_phase("frame 1918x1081 rk45", "march_rk45", iters=3,
-                              integrator=Integrator.RK45)
+    kerr = frame_phase("frame 1918x1081 kerr(spin=0.9)", "march_kerr", iters=3,
+                       geodesics="kerr", spin=0.9)
+    rk45 = frame_phase("frame 1918x1081 rk45", "march_rk45", iters=3,
+                       integrator=Integrator.RK45)
 
     # --- 5. small dense frames: the card against the plain path on the CPU ---
     small = RenderConfig(width=192, height=108, use_ladder=False, max_iterations=600,
@@ -308,23 +334,27 @@ def main() -> int:
     if failures:
         _die("failed phases: " + ", ".join(failures))
 
-    def entry(name, source, replaces, launches, r):
+    def entry(name, source, replaces, bench, r):
+        """A kernel's record: its launches in the frames of ``bench`` (the
+        frame phase whose path runs it) and per frame, or, for a kernel on
+        no render path, its launches through its entry point."""
+        launches = bench["launches"][name] if bench else aside[name]
         return dict(name=name, route="cuda", source=f"bhx_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
-                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"])
+                    launches_per_frame=bench["launches_per_frame"][name] if bench else 0,
+                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    bound_ceiling=r["bound_ceiling"], library_ms=None)
 
     march_at = "bhx/kernels/march_pallas.py:319"
     kernels = [
-        entry("march", "march.cu", march_at, counts["march"], march_r),
-        entry("march_rk45", "march.cu", march_at, counts_rk45["march_rk45"], last["rk45"]),
-        entry("march_kerr", "march.cu", march_at, counts_kerr["march_kerr"], last["kerr"]),
-        entry("composite", "shade.cu", "bhx/kernels/shade_pallas.py:499",
-              counts["composite"], comp_r),
-        entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", counts["sky"], sky_r),
-        entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246",
-              aside["ingredients"], ing_r),
-        entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723",
-              aside["sky_finalize"], skyf_r),
+        entry("march", "march.cu", march_at, euler, march_r),
+        entry("march_rk45", "march.cu", march_at, rk45, last["rk45"]),
+        entry("march_kerr", "march.cu", march_at, kerr, last["kerr"]),
+        entry("composite", "shade.cu", "bhx/kernels/shade_pallas.py:499", euler, comp_r),
+        entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", euler, sky_r),
+        entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246", None, ing_r),
+        entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723", None, skyf_r),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

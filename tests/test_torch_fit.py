@@ -158,7 +158,7 @@ def test_fit_scene_lowers_the_loss():
     cfg = bhx_torch.RenderConfig(width=32, height=18, use_ladder=False, max_iterations=200,
                                  bloom=bhx_torch.BloomConfig(enabled=False),
                                  fxaa=bhx_torch.FxaaConfig(enabled=False), show_sky=False)
-    scene = bhx_torch.Scene.default()
+    scene = bhx_torch.Scene.default("cpu")
     target = bhx_torch.render(tpar.apply_params(scene, dict(tpar.scene_params(scene),
                                                             mass=0.6)), cfg).detach()
     seen = []

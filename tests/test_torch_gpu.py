@@ -23,7 +23,8 @@ from bhx_torch.kernels import march as tmarch
 from bhx_torch.kernels import shade as tshade
 from bhx_torch.kernels import sky as tsky
 from bhx_torch.scene import with_spin
-from bhx_torch.tracer import first_march_batch
+from bhx_torch.tracer import march_batch
+from bhx_torch.tracer import march_kwargs as tmarch_kwargs
 
 _SLOTS = slice(tmarch.OUT_FIXED, tmarch.OUT_FIXED + tmarch.SLOT_ROWS)
 
@@ -39,14 +40,14 @@ def frame():
 
 def test_march_level0_matches_plain(frame):
     scene, cfg = frame
-    rays, params, _ = first_march_batch(scene, cfg, *cfg.ladder_for_output().resolution(0))
+    rays, params, _ = march_batch(scene, cfg, *cfg.ladder_for_output().resolution(0))
     r = checks.compare_march(rays, params, cfg)
     assert r["ok"], {k: v for k, v in r.items() if k != "out"}
 
 
 def test_dense_trace_kernels_match_plain(frame):
     scene, cfg = frame
-    rays, params, cam = first_march_batch(scene, cfg, 640, 361)
+    rays, params, cam = march_batch(scene, cfg, 640, 361)
     r = checks.compare_march(rays, params, cfg)
     assert r["ok"], {k: v for k, v in r.items() if k != "out"}
     c = checks.compare_composite(r["out"][_SLOTS], cam,
@@ -69,11 +70,67 @@ def test_rk45_and_kerr_marches_match_plain(frame, branch):
     else:
         cfg = cfg.replace(integrator=bhx_torch.Integrator.RK45)
     for size in (cfg.ladder_for_output().resolution(0), (640, 361)):
-        rays, params, _ = first_march_batch(scene, cfg, *size)
+        rays, params, _ = march_batch(scene, cfg, *size)
         before = launch_counts()[f"march_{branch}"]
         r = checks.compare_march(rays, params, cfg)
         assert r["ok"], {k: v for k, v in r.items() if k != "out"}
         assert launch_counts()[f"march_{branch}"] == before + 1
+
+
+def _branch(frame, branch):
+    scene, cfg = frame
+    cfg = cfg.replace(width=96, height=54, use_ladder=False, max_iterations=300)
+    if branch == "kerr":
+        return with_spin(scene, 0.9), cfg.replace(geodesics="kerr")
+    if branch == "rk45":
+        return scene, cfg.replace(integrator=bhx_torch.Integrator.RK45)
+    return scene, cfg
+
+
+def _edge_batches(rays, params, case):
+    """The (rays, params) launches of one edge case, from a dense 96x54
+    batch (N = 5184 = 40.5 blocks of 128, every lane live)."""
+    n = rays.shape[1]
+    rays = rays.clone()
+    if case == "no_live":
+        rays[7] = 0.0
+    elif case == "one_live":
+        rays[7] = 0.0
+        rays[7, n // 2 + 5] = 1.0
+    elif case == "ragged_last_block":
+        assert n % 128
+        rays[7, :n - n % 128] = 0.0
+    elif case == "below_one_warp":
+        rays = rays[:, 1000:1020].contiguous()
+    elif case == "all_to_budget":
+        # Five steps left of the budget: no ray exits or is absorbed in them.
+        rays[9] = params[tmarch._P["budget"]] - 5.0
+    elif case == "two_in_a_row":
+        return [(rays, params), (rays[:, ::3].contiguous(), params)]
+    return [(rays, params)]
+
+
+@pytest.mark.parametrize("case", ["no_live", "one_live", "ragged_last_block",
+                                  "below_one_warp", "two_in_a_row", "all_to_budget"])
+@pytest.mark.parametrize("branch", ["euler", "rk45", "kerr"])
+def test_march_edge_cases_bit_identical(frame, branch, case):
+    """The compacting kernel against the plain march at its edges: every
+    output bit-identical, the queue and its counters fresh in every launch."""
+    scene, cfg = _branch(frame, branch)
+    kw = tmarch_kwargs(cfg)
+    rays, params, _ = march_batch(scene, cfg, cfg.width, cfg.height)
+    batches = _edge_batches(rays, params, case)
+    got = [tmarch.march(r, p, **kw) for r, p in batches]
+    torch.cuda.synchronize()
+    for (r, p), g in zip(batches, got):
+        want = tmarch.march_torch(r, p, **kw)
+        assert g.shape == want.shape
+        assert float((g - want).abs().max()) == 0.0
+    steps = got[0][tmarch._OUT_FIXED["steps"]]
+    live = (batches[0][0][7] > 0.5).sum()
+    assert int((steps > 0).sum()) == int(live)
+    if case == "all_to_budget":
+        assert bool((steps == 5.0).all())
 
 
 @pytest.mark.parametrize("requires_grad", [False, True], ids=["forward", "backward"])

@@ -394,7 +394,7 @@ def test_render_grad_reaches_every_fitted_leaf():
     names = ["mass", "disk_rotation", "disk_inner", "disk_outer", "feather",
              "cam_position", "cam_fov", "disk_gain", "time"]
     cfg = torch_cfg(GRAD_CFG).replace(tonemap=True)
-    scene = _replace(bhx_torch.Scene.default(), cam_fov=torch.tensor(2.0))
+    scene = _replace(bhx_torch.Scene.default("cpu"), cam_fov=torch.tensor(2.0))
     w = np.random.default_rng(0).random((cfg.height, cfg.width, 3)).astype(np.float32)
     for geodesics, extra in (("pseudo", []), ("kerr", ["spin"])):
         s = with_spin(scene, 0.6) if geodesics == "kerr" else scene

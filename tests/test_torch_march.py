@@ -139,11 +139,31 @@ def test_march_inactive_lanes_unchanged(integrator, geodesics):
     np.testing.assert_array_equal(got[:, ~dead], full[:, ~dead])
 
 
+@pytest.mark.parametrize("integrator, geodesics", [("euler", "pseudo"), ("rk45", "pseudo"),
+                                                   ("euler", "kerr")],
+                         ids=["euler", "rk45", "kerr"])
+def test_march_lane_subset_is_exact(integrator, geodesics):
+    """A lane's output is a function of its own input row: the plain march
+    of a permuted subset of the lanes (live and dead) equals the same
+    columns of the full call bit for bit.  The kernel rests on it when it
+    marches the live lanes compacted, in queue order, refilling a warp's
+    retired lanes with any others."""
+    full_rows, params = _setup_kerr() if geodesics == "kerr" else _setup()
+    rows = full_rows.copy()
+    rows[7, ::5] = 0.0  # some lanes enter dead
+    kw = dict(integrator=integrator, geodesics=geodesics)
+    full = _march_t(rows, params, **kw)
+    idx = np.random.default_rng(1).permutation(rows.shape[1])[:rows.shape[1] // 3]
+    sub = _march_t(np.ascontiguousarray(rows[:, idx]), params, **kw)
+    assert (rows[7, idx] > 0.5).any() and (rows[7, idx] < 0.5).any()
+    np.testing.assert_array_equal(sub, full[:, idx])
+
+
 def test_pack_params_matches_bhx():
     scene = small_scene()
     _, normal = scene.black_hole.disk_frame()
     want = np.asarray(jax_pack_params(scene.black_hole, normal, JaxRenderConfig()))
-    ts = bhx_torch.Scene.default()
+    ts = bhx_torch.Scene.default("cpu")
     _, tnormal = ts.black_hole.disk_frame()
     got = tmarch.pack_params(ts.black_hole, tnormal, bhx_torch.RenderConfig()).numpy()
     assert got.shape == (tmarch.NUM_PARAMS,)
@@ -158,7 +178,7 @@ def test_pack_params_rk_fields_and_spin_match_bhx():
     bh = dataclasses.replace(scene.black_hole, spin=jnp.float32(0.9))
     _, normal = bh.disk_frame()
     want = np.asarray(jax_pack_params(bh, normal, JaxRenderConfig(max_iterations=700, **rk)))
-    ts = bhx_torch.Scene.default()
+    ts = bhx_torch.Scene.default("cpu")
     tbh = dataclasses.replace(ts.black_hole, spin=torch.tensor(0.9))
     _, tnormal = tbh.disk_frame()
     cfg = bhx_torch.RenderConfig(max_iterations=700, geodesics="kerr",

@@ -63,7 +63,7 @@ def torch_cfg(cfg: jcfg.RenderConfig) -> bhx_torch.RenderConfig:
 
 @functools.lru_cache(maxsize=1)
 def _torch_scene():
-    return bhx_torch.scene_from_state(scene_to_state(small_scene()))
+    return bhx_torch.scene_from_state(scene_to_state(small_scene()), "cpu")
 
 
 @functools.lru_cache(maxsize=4)
@@ -182,8 +182,8 @@ def test_final_level_march_batch():
     w, h = lad.resolution(lad.levels - 1)
     mask = final_level_retrace_mask(scene, cfg)
     assert mask.shape == (w * h,) and 0.0 < float(mask.float().mean()) < 1.0
-    rays, params, cam = ttracer.first_march_batch(scene, cfg, w, h, active=mask)
-    full, full_params, full_cam = ttracer.first_march_batch(scene, cfg, w, h)
+    rays, params, cam = ttracer.march_batch(scene, cfg, w, h, active=mask)
+    full, full_params, full_cam = ttracer.march_batch(scene, cfg, w, h)
     assert rays.shape == (10, w * h) and bool((rays[7] > 0.5).any())
     torch.testing.assert_close(rays[7], torch.where(mask, full[7], 0.0), atol=0, rtol=0)
     marching = rays[7] > 0.5
@@ -221,7 +221,7 @@ def test_render_matches_march_golden(name):
     and config (tests/test_golden.py; 64x36, no post), rendered by bhx's
     jnp march, which composites every crossing as it goes."""
     scene, cfg = golden_cases()[name]
-    tscene = bhx_torch.scene_from_state(scene_to_state(scene))
+    tscene = bhx_torch.scene_from_state(scene_to_state(scene), "cpu")
     got = bhx_torch.render(tscene, torch_cfg(cfg)).numpy()
     want = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))["img"]
     assert got.shape == want.shape
@@ -247,7 +247,7 @@ def test_import_and_render_pull_in_no_jax():
         "torch.set_num_threads(2)\n"
         "cfg = bhx_torch.RenderConfig(width=32, height=18, use_ladder=False,"
         " max_iterations=200)\n"
-        "scene = bhx_torch.Scene.default()\n"
+        "scene = bhx_torch.Scene.default('cpu')\n"
         "img = bhx_torch.render(scene, cfg)\n"
         "assert tuple(img.shape) == (18, 32, 3), img.shape\n"
         "kerr = dataclasses.replace(scene, black_hole=dataclasses.replace("

@@ -127,7 +127,7 @@ def test_gain_sample_matches_hat_basis():
 
 def test_scene_from_state_matches_bhx():
     scene = small_scene()
-    ts = bhx_torch.scene_from_state(scene_to_state(scene))
+    ts = bhx_torch.scene_from_state(scene_to_state(scene), "cpu")
     for part, tpart in ((scene.camera, ts.camera), (scene.black_hole, ts.black_hole)):
         for f in dataclasses.fields(tpart):
             np.testing.assert_array_equal(
@@ -139,18 +139,48 @@ def test_scene_from_state_matches_bhx():
     np.testing.assert_allclose(rot_t.numpy(), np.asarray(rot_j), atol=1e-6, rtol=0)
     np.testing.assert_allclose(up_t.numpy(), np.asarray(up_j), atol=1e-6, rtol=0)
     # Scene.default agrees with the reference's defaults.
-    d = bhx_torch.Scene.default()
+    d = bhx_torch.Scene.default("cpu")
     np.testing.assert_array_equal(d.black_hole.disk_rotation.numpy(),
                                   np.asarray(scene.black_hole.disk_rotation))
     np.testing.assert_array_equal(d.camera.position.numpy(),
                                   np.asarray(scene.camera.position))
 
 
+def test_scene_constructors_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """With no device the constructors put the scene on the CUDA card, and
+    raise, naming the missing card, where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    state = scene_to_state(small_scene())
+    for make in (bhx_torch.Scene.default, bhx_torch.Camera.default,
+                 bhx_torch.BlackHole.default, lambda: bhx_torch.scene_from_state(state)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        bhx_torch.Scene.default("cuda")
+    assert bhx_torch.Scene.default("cpu").camera.position.device.type == "cpu"
+
+
+def test_scene_default_cpu_matches_bhx():
+    """``Scene.default("cpu")``: every leaf equals bhx's default scene."""
+    from bhx.scene import Scene as JaxScene
+
+    want = JaxScene.default()
+    got = bhx_torch.Scene.default("cpu")
+    for part, tpart in ((want.camera, got.camera), (want.black_hole, got.black_hole)):
+        for f in dataclasses.fields(tpart):
+            t = getattr(tpart, f.name)
+            assert t.device.type == "cpu" and t.dtype == torch.float32, f.name
+            np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(part, f.name)),
+                                          err_msg=f.name)
+    np.testing.assert_array_equal(got.time.numpy(), np.asarray(want.time))
+    np.testing.assert_array_equal(got.disk_gain.numpy(), np.asarray(want.disk_gain))
+
+
 def test_scene_with_meshes_raises():
     state = scene_to_state(small_scene())
     state["meshes"] = ({"points": np.zeros((3, 3), np.float32)},)
     with pytest.raises(NotImplementedError, match="A12"):
-        bhx_torch.scene_from_state(state)
+        bhx_torch.scene_from_state(state, "cpu")
 
 
 @pytest.mark.parametrize("kw, item", [

@@ -105,7 +105,7 @@ def test_slot_shift_matches_jnp(monkeypatch):
 
 
 def test_pack_shade_params_matches_bhx():
-    ts = bhx_torch.Scene.default()
+    ts = bhx_torch.Scene.default("cpu")
     rot, _ = ts.black_hole.disk_frame()
     got = tshade.pack_shade_params(ts.black_hole, rot, torch.tensor(0.7)).numpy()
     np.testing.assert_allclose(got, _params(), atol=1e-6, rtol=0)
