@@ -75,8 +75,10 @@ static __device__ __forceinline__ float disk_texel_m(float u, float v) {
   // Degenerate-center guard (atan2(0, 0) -> atan2(0, 1), same value).
   float theta = atan2f(ry, r2 < 1e-24f ? 1.0f : rx) +
                 sqrtf(r) * static_cast<float>(3.141592653589793 * 2.0);
-  float sx = r * cosf(theta) * 0.5f + 0.5f;
-  float sy = r * sinf(theta) * 0.5f + 0.5f;
+  float sin_t, cos_t;  // one reduction; the same bits as sinf and cosf
+  sincosf(theta, &sin_t, &cos_t);
+  float sx = r * cos_t * 0.5f + 0.5f;
+  float sy = r * sin_t * 0.5f + 0.5f;
   float o0 = perlin(sx * 4.0f, sy * 4.0f);
   float o1 = perlin(sx * 20.0f + 31.0f, sy * 20.0f + 7.0f);
   float o2 = perlin(sx * 50.0f + 101.0f, sy * 50.0f + 53.0f);

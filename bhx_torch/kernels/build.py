@@ -27,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = _CSRC.parent.parent / "build" / "bhx_torch"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "bhx_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -40,7 +40,7 @@ _I64 = ctypes.c_int64
 _F32 = ctypes.c_float
 # C signatures; every entry point also takes the stream last and returns
 # cudaGetLastError() after its launch.
-_SIGNATURES = {
+SIGNATURES = {
     # rays, params, out, queue (N int32 of scratch), counters (3 int32,
     # zero), n, max_iterations, tex_opacity_min, show_disk, mode (0 Euler,
     # 1 RK45, 2 Kerr)
@@ -69,13 +69,13 @@ def _tag(sources) -> str:
     for p in sorted(sources):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    for p in sorted(_CSRC.glob("*.cuh")):
+    for p in sorted(CSRC.glob("*.cuh")):
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
 def _sources():
-    return sorted(_CSRC.glob("*.cu"))
+    return sorted(CSRC.glob("*.cu"))
 
 
 def log_path(sources=None) -> Path:
@@ -96,7 +96,7 @@ def compile_library(sources, signatures, name: str = "libbhx_torch") -> ctypes.C
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             tmp = BUILD_DIR / f"{name}_{tag}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    *map(str, sorted(sources))]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             (BUILD_DIR / f"nvcc_{tag}.log").write_text(proc.stdout + proc.stderr)
@@ -118,7 +118,7 @@ def compile_library(sources, signatures, name: str = "libbhx_torch") -> ctypes.C
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library."""
-    return compile_library(_sources(), _SIGNATURES)
+    return compile_library(_sources(), SIGNATURES)
 
 
 def launch(name: str, *args) -> None:

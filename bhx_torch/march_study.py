@@ -1,17 +1,32 @@
-"""Measure the march kernel at the default frame's shapes on one CUDA card.
+"""Measure the march kernel, or the composite and ingredients kernels, at
+the default frame's shapes on one CUDA card.
 
-For each branch (Euler, RK45, Kerr spin 0.9) and each of the last ladder
-level's two march launches (round 0 and the re-entry round 1), print one
-JSON line with the launch's work and bound (``checks.march_work``), the
-SIMT efficiency of one thread per lane in pixel order and of the live
-lanes packed 32 to a warp, and, for every kernel compared, its time
-(CUDA events, 10 calls after a warm-up, taken in turns a, b, ..., b, a)
-and its serial floor (``checks.serial_floor``).  Every kernel's output is
-held against the first one's bit for bit.
+``--study march`` (the default): for each branch (Euler, RK45, Kerr spin
+0.9) and each of the last ladder level's two march launches (round 0 and
+the re-entry round 1), print one JSON line with the launch's work and
+bound (``checks.march_work``), the SIMT efficiency of one thread per lane
+in pixel order and of the live lanes packed 32 to a warp, and, for every
+kernel compared, its time (CUDA events, 10 calls after a warm-up, taken
+in turns a, b, ..., b, a) and its serial floor (``checks.serial_floor``).
 
-The kernels: ``new``, the package's ``csrc/march.cu``; ``old``, another
-``march.cu`` with the first port's entry point (no scratch pointers),
-given by ``--old``.  Each is called through its C entry point here, with
+``--study shade``: one JSON line for the composite on the slots of the
+last ladder level's round-0 march (Euler) and of the dense 640x361 trace
+of Euler and of Kerr spin 0.9, with their work (``checks.composite_work``:
+valid slots, rays with one, SIMT efficiency one thread per ray and packed
+per block of 256 rays), the bound (``checks.composite_bound``; and
+``slot0_bound_ms``, the bound under the narrower byte count of earlier
+records, 4 (5n + 6v + v_0), which reads only slot 0's valid row of every
+ray and a later slot's behind a valid one), every kernel's time in turns
+on those slots, on the same slots with every valid row zeroed (the
+streaming floor: loads and stores alone) and on the rays with a valid
+slot alone (the shading, with little stream); after the Euler 640x361 line,
+one for the ingredients on its slots, with their bound and times.
+
+Every kernel's output is held against the first one's (the march) or the
+plain version's (the shade kernels) bit for bit.  The kernels: ``new``,
+the package's ``csrc/``; ``old``, another ``march.cu`` with the first
+port's entry point (no scratch pointers) or another ``shade.cu``, given
+by ``--old``.  Each is called through its C entry point here, with
 scratch of its own, and counted here: the package's launch counts do not
 move.  ``--profile`` adds each kernel's device time by CUDA kernel
 (``torch.profiler``, three calls).
@@ -21,12 +36,13 @@ by the ``bhx_torch`` package of each tree root (``.``, or an earlier
 commit unpacked with ``git archive``), in turns a, b, ..., b, a, each in a
 process of its own: ms a frame (CUDA events over 3 frames after 2 warm-up
 frames) and, from ``torch.profiler`` over 3 frames, the device's busy ms
-a frame (the union of its kernels' intervals) and the march's.  Run from
-the repository root, against the first port's commit:
+a frame (the union of its kernels' intervals), the march's and the
+composite's.  Run from the repository root, against an earlier commit:
 
-    mkdir -p build/parent && git archive 8d5ac58 | tar -x -C build/parent
-    python -m bhx_torch.march_study --old build/parent/bhx_torch/csrc/march.cu \\
-        --kernels old,new --frames build/parent,.
+    mkdir -p build/parent && git archive a26d756 | tar -x -C build/parent
+    python -m bhx_torch.march_study --study shade \\
+        --old build/parent/bhx_torch/csrc/shade.cu --kernels old,new \\
+        --frames build/parent,.
 """
 
 from __future__ import annotations
@@ -45,20 +61,23 @@ from bhx_torch import checks
 from bhx_torch.config import Integrator, RenderConfig
 from bhx_torch.kernels import build
 from bhx_torch.kernels import march as march_mod
+from bhx_torch.kernels import shade as shade_mod
 from bhx_torch.scene import Scene, with_spin
-from bhx_torch.tracer import march_kwargs
+from bhx_torch.tracer import march_batch, march_kwargs
 
-# The first port's entry point: rays, params, out, n, max_iterations,
+# The first port's march entry point: rays, params, out, n, max_iterations,
 # tex_opacity_min, show_disk, mode.
 OLD_SIGNATURE = {"bhx_march": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int64, ctypes.c_int, ctypes.c_float,
                                ctypes.c_int, ctypes.c_int)}
+# The shade entry points, unchanged since the first port.
+SHADE_SIGNATURES = {k: build.SIGNATURES[k] for k in ("bhx_composite", "bhx_ingredients")}
 
 # Launches of each kernel made by this study.
 launches: dict = {}
 
 
-def _runner(name: str, lib: ctypes.CDLL, scratch: bool):
+def _march_runner(name: str, lib: ctypes.CDLL, scratch: bool):
     """march(rays, params, **march_kwargs) through ``lib``'s ``bhx_march``;
     ``scratch``: the entry point takes the queue and its counters."""
     def run(rays, params, **kw):
@@ -78,26 +97,65 @@ def _runner(name: str, lib: ctypes.CDLL, scratch: bool):
     return run
 
 
-def _kernels(names, old_path):
-    """name -> march(rays, params, **kw) for every kernel compared, and the
-    ptxas report of every build."""
-    kernels, logs = {}, {}
+def _shade_runners(name: str, lib: ctypes.CDLL):
+    """composite(slots, cam, params, gain, cfg) and ingredients(slots, cam,
+    params, cfg) through ``lib``'s ``bhx_composite`` and
+    ``bhx_ingredients``."""
+    def composite(slots, cam, params, gain, cfg):
+        n = slots.shape[1]
+        out = torch.empty((4, n), dtype=torch.float32, device=slots.device)
+        build.call(lib, "bhx_composite", slots, cam, params, gain, int(gain.shape[0]),
+                   int(gain.shape[1]), shade_mod.tint_table(slots.device), out, n,
+                   int(cfg.show_disk_texture), int(cfg.show_redshift))
+        launches[f"{name} composite"] += 1
+        return out
+
+    def ingredients(slots, cam, params, cfg):
+        n = slots.shape[1]
+        out = torch.empty((shade_mod.MAX_CROSSINGS * shade_mod.ING_FIELDS, n),
+                          dtype=torch.float32, device=slots.device)
+        build.call(lib, "bhx_ingredients", slots, cam, params,
+                   shade_mod.tint_table(slots.device), out, n,
+                   int(cfg.show_disk_texture), int(cfg.show_redshift))
+        launches[f"{name} ingredients"] += 1
+        return out
+    return composite, ingredients
+
+
+def _libraries(names, old_path, study: str):
+    """name -> the library of every kernel compared; prints each build's
+    ptxas report.  ``old`` is ``old_path`` built alone (a march.cu) or
+    beside the package's march.cu, which holds the error-string entry (a
+    shade.cu)."""
+    libs, report = {}, {}
     for name in names:
-        launches[name] = 0
         if name == "old":
             paths = [Path(old_path).resolve()]
-            lib = build.compile_library(paths, OLD_SIGNATURE, name="libmarch_old")
-            kernels[name] = _runner(name, lib, scratch=False)
-            logs[name] = build.log_path(paths).read_text()
+            if study == "shade":
+                paths.append(build.CSRC / "march.cu")
+            libs[name] = build.compile_library(
+                paths, OLD_SIGNATURE if study == "march" else SHADE_SIGNATURES,
+                name=f"lib{study}_old")
+            log = build.log_path(paths).read_text()
         elif name == "new":
-            kernels[name] = _runner(name, build.library(), scratch=True)
-            logs[name] = build.log_path().read_text()
+            libs[name] = build.library()
+            log = build.log_path().read_text()
         else:
             raise ValueError(f"unknown kernel {name!r}: new or old")
-    report = {name: [ln.strip() for ln in text.splitlines()
-                     if "march" in ln and "entry function" in ln or "registers" in ln
-                     or "spill" in ln] for name, text in logs.items()}
-    return kernels, report
+        report[name] = [ln.strip() for ln in log.splitlines()
+                        if any(k in ln for k in ("entry function", "registers", "spill"))]
+    for name, lines in report.items():
+        print(json.dumps(dict(ptxas=name, lines=lines)), flush=True)
+    return libs
+
+
+def _turns(fns: dict, reps: int) -> dict:
+    """ms a call of each of ``fns`` (name -> call), ``reps`` calls after a
+    warm-up, in turns a, b, ..., b, a."""
+    times = {n: [] for n in fns}
+    for n in list(fns) + list(reversed(list(fns))):
+        times[n].append(checks._timed(fns[n], reps)[1])
+    return times
 
 
 def _live_steps(rays, params, out) -> torch.Tensor:
@@ -137,18 +195,22 @@ def _profile(fn, calls: int = 3) -> dict:
             if e.device_time_total > 0}
 
 
-def study(kernel_names, old_path=None, reps: int = 10, profile: bool = False):
+def _branches():
     scene = Scene.default()
-    branches = {
+    return {
         "march": (scene, RenderConfig()),
         "march_rk45": (scene, RenderConfig(integrator=Integrator.RK45)),
         "march_kerr": (with_spin(scene, 0.9), RenderConfig(geodesics="kerr")),
     }
-    kernels, report = _kernels(kernel_names, old_path)
-    for name, lines in report.items():
-        print(json.dumps(dict(ptxas=name, lines=lines)), flush=True)
+
+
+def study(kernel_names, old_path=None, reps: int = 10, profile: bool = False):
+    libs = _libraries(kernel_names, old_path, "march")
+    kernels = {n: _march_runner(n, lib, scratch=n == "new") for n, lib in libs.items()}
+    for n in kernels:
+        launches[n] = 0
     rows = []
-    for branch, (b_scene, cfg) in branches.items():
+    for branch, (b_scene, cfg) in _branches().items():
         kw = march_kwargs(cfg)
         for rnd in (0, 1):
             rays, params, _ = checks.last_level_batch(b_scene, cfg, march_round=rnd)
@@ -160,18 +222,71 @@ def study(kernel_names, old_path=None, reps: int = 10, profile: bool = False):
                        packed_simt_eff=_packed_simt(steps),
                        steps_q=_steps_quantiles(steps),
                        max_abs_err={n: float((o - first).abs().max()) for n, o in outs.items()})
-            times = {n: [] for n in kernel_names}
-            for n in list(kernel_names) + list(reversed(kernel_names)):
-                times[n].append(checks._timed(lambda: kernels[n](rays, params, **kw), reps)[1])
-            row["ms"] = times
+            row["ms"] = _turns({n: (lambda f=f: f(rays, params, **kw))
+                                for n, f in kernels.items()}, reps)
             row["floor"] = {n: checks.serial_floor(rays, params, first,
-                                                   lambda r, p: kernels[n](r, p, **kw))
-                            for n in kernel_names}
+                                                   lambda r, p, f=f: f(r, p, **kw))
+                            for n, f in kernels.items()}
             if profile:
-                row["profile_us"] = {n: _profile(lambda: kernels[n](rays, params, **kw))
-                                     for n in kernel_names}
+                row["profile_us"] = {n: _profile(lambda f=f: f(rays, params, **kw))
+                                     for n, f in kernels.items()}
             rows.append(row)
             print(json.dumps(row), flush=True)
+    print(json.dumps(dict(launches=launches)), flush=True)
+    return rows
+
+
+def shade_study(kernel_names, old_path=None, reps: int = 10, profile: bool = False):
+    libs = _libraries(kernel_names, old_path, "shade")
+    runners = {n: _shade_runners(n, lib) for n, lib in libs.items()}
+    for n in runners:
+        launches[f"{n} composite"] = launches[f"{n} ingredients"] = 0
+    branches = _branches()
+    scene, cfg = branches["march"]
+    cases = {"last level": (scene, cfg, checks.last_level_batch(scene, cfg)),
+             "640x361": (scene, cfg, march_batch(scene, cfg, 640, 361))}
+    kerr_scene, kerr_cfg = branches["march_kerr"]
+    cases["640x361 kerr"] = (kerr_scene, kerr_cfg, march_batch(kerr_scene, kerr_cfg, 640, 361))
+    rows = []
+
+    def record(row, fns, plain, **parts):
+        want = plain()
+        row["max_abs_err"] = {n: checks._max_abs_err(f(), want) for n, f in fns.items()}
+        row["ms"] = _turns(fns, reps)
+        for name, part_fns in parts.items():
+            row[name] = _turns(part_fns, reps)
+        if profile:
+            row["profile_us"] = {n: _profile(f) for n, f in fns.items()}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for case, (s, c, (rays, params, cam)) in cases.items():
+        slots = march_mod.march(rays, params, **march_kwargs(c))[
+            march_mod.OUT_FIXED:march_mod.OUT_FIXED + march_mod.SLOT_ROWS]
+        sp = checks.shade_params(s)
+        flags = dict(show_texture=c.show_disk_texture, show_redshift=c.show_redshift)
+        no_valid = slots.clone()
+        no_valid[march_mod.CROSS_FIELDS - 1::march_mod.CROSS_FIELDS] = 0.0
+        crossing = checks._valid_slots(slots).any(0)
+        only, only_cam = slots[:, crossing].contiguous(), cam[crossing].contiguous()
+        work, bnd = checks.composite_work(slots), checks.composite_bound(slots, c)
+        slot0_bytes = 4.0 * (5 * work["n"] + 6 * work["v"] + work["v_by_k"][0])
+        row = dict(kernel="composite", case=case, **work, **bnd,
+                   slot0_bound_ms=max(bnd["ops_ms"],
+                                      slot0_bytes / checks.PEAK_BYTES_PER_S * 1e3))
+        record(row,
+               {n: (lambda f=comp: f(slots, cam, sp, s.disk_gain, c))
+                for n, (comp, _) in runners.items()},
+               lambda: shade_mod.composite_torch(slots, cam, sp, s.disk_gain, **flags),
+               floor_ms={n: (lambda f=comp: f(no_valid, cam, sp, s.disk_gain, c))
+                         for n, (comp, _) in runners.items()},
+               crossing_ms={n: (lambda f=comp: f(only, only_cam, sp, s.disk_gain, c))
+                            for n, (comp, _) in runners.items()})
+        if case == "640x361":
+            record(dict(kernel="ingredients", case=case, n=work["n"],
+                        **checks.ingredients_bound(slots, c)),
+                   {n: (lambda f=ing: f(slots, cam, sp, c)) for n, (_, ing) in runners.items()},
+                   lambda: shade_mod.ingredients_torch(slots, cam, sp, **flags))
     print(json.dumps(dict(launches=launches)), flush=True)
     return rows
 
@@ -179,7 +294,7 @@ def study(kernel_names, old_path=None, reps: int = 10, profile: bool = False):
 # Run in a process of its own by :func:`frames`, with a tree root's
 # bhx_torch first on the path; uses only what every version of the
 # package has.  Prints one JSON object: branch -> frame_ms, device_ms,
-# march_device_ms.
+# march_device_ms, composite_device_ms.
 _FRAME_SCRIPT = r"""
 import json, sys
 import torch
@@ -208,6 +323,11 @@ def busy(spans):
     return total
 
 
+def busy_ms(kernels, part=""):
+    return busy([(e.time_range.start, e.time_range.end)
+                 for e in kernels if part in e.name]) / iters / 1e3
+
+
 rows = {}
 for name, (s, cfg) in branches.items():
     for _ in range(2):
@@ -224,11 +344,10 @@ for name, (s, cfg) in branches.items():
             render(s, cfg)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    rows[name] = dict(
-        frame_ms=a.elapsed_time(b) / iters,
-        device_ms=busy([(e.time_range.start, e.time_range.end) for e in kernels]) / iters / 1e3,
-        march_device_ms=busy([(e.time_range.start, e.time_range.end)
-                              for e in kernels if "march" in e.name]) / iters / 1e3)
+    # The composite's kernel is the only one whose name holds "shade".
+    rows[name] = dict(frame_ms=a.elapsed_time(b) / iters, device_ms=busy_ms(kernels),
+                      march_device_ms=busy_ms(kernels, "march"),
+                      composite_device_ms=busy_ms(kernels, "shade"))
 print(json.dumps(rows))
 """
 
@@ -256,7 +375,10 @@ def frames(roots, iters: int = 3):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", help="a march.cu with the first port's entry point")
+    ap.add_argument("--study", choices=("march", "shade"), default="march",
+                    help="the march kernel, or the composite and ingredients kernels")
+    ap.add_argument("--old", help="a march.cu with the first port's entry point, or a "
+                                  "shade.cu (with --study shade)")
     ap.add_argument("--kernels", default="new", help="comma-separated: new, old")
     ap.add_argument("--profile", action="store_true",
                     help="device time by CUDA kernel")
@@ -270,7 +392,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    rows = study(args.kernels.split(","), args.old, profile=args.profile)
+    run = study if args.study == "march" else shade_study
+    rows = run(args.kernels.split(","), args.old, profile=args.profile)
     frame_rows = frames(args.frames.split(",")) if args.frames else {}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -15,7 +15,7 @@ def sample_gain(grid: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
     Same math as ``bhx.shading.sample_grid_mxu``: its hat-basis weights are
     zero outside the 2x2 footprint, which this fetches directly."""
-    gh, gw, _ = grid.shape
+    gh, gw, channels = grid.shape
     x = torch.clamp(u * gw - 0.5, 0.0, gw - 1.0)
     y = torch.clamp(v * gh - 0.5, 0.0, gh - 1.0)
     x0 = torch.floor(x)
@@ -32,7 +32,7 @@ def sample_gain(grid: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     texels = grid.reshape(gh * gw, -1)
 
     def fetch(iy, ix):
-        return texels.index_select(0, (iy * gw + ix).reshape(-1)).reshape(u.shape + (-1,))
+        return texels.index_select(0, (iy * gw + ix).reshape(-1)).reshape(u.shape + (channels,))
 
     top = fetch(iy0, ix0) * (1.0 - fx) + fetch(iy0, ix1) * fx
     bot = fetch(iy1, ix0) * (1.0 - fx) + fetch(iy1, ix1) * fx

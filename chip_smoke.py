@@ -16,8 +16,12 @@ Phases, each printed as it finishes:
    interleaved record, all on that trace, then march, composite and sky at
    the default frame's own shapes (the last ladder level's two march
    launches, round 0 and the re-entry round 1, and the final frame), timed
-   with CUDA events beside their plain versions; every march bit-identical
-   to its plain version (max |err| 0.0).  Each last-level march line
+   with CUDA events beside their plain versions; every march, composite
+   and ingredients launch bit-identical to its plain version (max |err|
+   0.0).  Each composite line carries its work (``checks.composite_work``:
+   valid slots, rays with one, SIMT efficiency one thread per ray and
+   packed per block) and its bound (``checks.composite_bound``: every
+   slot's valid row of every ray read).  Each last-level march line
    carries its live lanes, the sum and largest of its ``steps`` row, the
    SIMT efficiency of one thread per lane in pixel order, its bound
    (``checks.march_work``: float operations at the unfused float32 rate,

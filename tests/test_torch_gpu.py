@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,6 +132,77 @@ def test_march_edge_cases_bit_identical(frame, branch, case):
     assert int((steps > 0).sum()) == int(live)
     if case == "all_to_budget":
         assert bool((steps == 5.0).all())
+
+
+def _random_slots(n: int, case: str, seed: int = 0):
+    """Random crossing slots on the card, (SLOT_ROWS, n), their camera
+    distances and a random disk_gain grid.  Each slot is valid on its own
+    (not a prefix); "blocks": the first 256-ray block has no valid slot,
+    the second all 1,024 valid."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-9, 9, (4, 3, n))
+    dirs = rng.normal(size=(4, 3, n))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    valid = rng.uniform(size=(4, n)) < np.array([[0.3], [0.4], [0.2], [0.1]])
+    if case == "blocks":
+        valid[:, :256] = False
+        valid[:, 256:512] = True
+    slots = np.concatenate([pos, dirs, valid[:, None, :]], axis=1).reshape(4 * 7, n)
+    cam = rng.uniform(15, 25, (n,))
+    gain = rng.uniform(0.3, 1.7, (16, 16, 4))
+    return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (slots, cam, gain)]
+
+
+@pytest.mark.parametrize("show_texture", [True, False])
+@pytest.mark.parametrize("show_redshift", [True, False])
+@pytest.mark.parametrize("case,n", [("random", 5000), ("blocks", 5000), ("random", 1),
+                                    ("random", 255), ("random", 257), ("random", 0),
+                                    ("random", 400_001)])
+def test_shade_kernels_bit_identical_at_edges(frame, case, n, show_texture, show_redshift):
+    """The block-compacting composite and the thread-per-slot ingredients
+    kernel against their plain versions, bit for bit, one launch each (none
+    for no ray); 400,001 rays are more chunks than the card holds blocks,
+    so each block takes several, the last one ragged."""
+    scene, _ = frame
+    slots, cam, gain = _random_slots(n, case)
+    params = checks.shade_params(scene)
+    flags = dict(show_texture=show_texture, show_redshift=show_redshift)
+    reset_launch_counts()
+    got = tshade.composite(slots, cam, params, gain, **flags)
+    ing = tshade.ingredients(slots, cam, params, **flags)
+    torch.cuda.synchronize()
+    assert launch_counts()["composite"] == launch_counts()["ingredients"] == int(n > 0)
+    want = tshade.composite_torch(slots, cam, params, gain, **flags)
+    want_ing = tshade.ingredients_torch(slots, cam, params, **flags)
+    assert got.shape == want.shape == (4, n)
+    assert ing.shape == want_ing.shape == (4 * tshade.ING_FIELDS, n)
+    assert checks._max_abs_err(got, want) == 0.0
+    assert checks._max_abs_err(ing, want_ing) == 0.0
+    if case == "blocks":
+        assert bool((got[:, :256] == torch.tensor([[0.0], [0.0], [0.0], [1.0]],
+                                                  device="cuda")).all())
+        assert bool((got[3, 256:512] < 1.0).any())
+
+
+def test_composite_backward_replays_after_one_launch(frame):
+    """The composite's backward is the replay of its plain version: one
+    kernel launch, one replay, the gradient of the plain version."""
+    scene, _ = frame
+    slots, cam, gain = _random_slots(5000, "blocks")
+    params = checks.shade_params(scene)
+    leaves = [t.clone().requires_grad_() for t in (params, gain)]
+    reset_launch_counts()
+    out = tshade.composite(slots, cam, *leaves)
+    grads = torch.autograd.grad((out * out).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (launch_counts()["composite"], replay_counts()["composite"]) == (1, 1)
+    plain = [t.clone().requires_grad_() for t in (params, gain)]
+    want = tshade.composite_torch(slots, cam, *plain)
+    assert checks._max_abs_err(out, want) == 0.0
+    # The gain's cotangent is summed by atomic index_add_, in no fixed order.
+    for g, w in zip(grads, torch.autograd.grad((want * want).sum(), plain)):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("requires_grad", [False, True], ids=["forward", "backward"])
