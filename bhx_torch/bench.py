@@ -29,19 +29,21 @@ from bhx_torch.tracer import crossing_overflow_stats
 
 def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
               warmup: int = 2, geodesics: str = "pseudo", spin: float = 0.0,
-              integrator: Integrator = Integrator.EULER) -> Dict:
+              integrator: Integrator = Integrator.EULER, scene: Scene = None) -> Dict:
     """Render ``iters`` timed frames after ``warmup`` and return Mrays/s,
     ms/frame, the kernel build and first-frame seconds, the K-slot
     crossing-overflow fraction, the kernel launches of one frame, the
     launch counts read just after the last frame (``launches``: every
     frame's launches since the caller last reset the counts, and nothing
     of the overflow diagnostic, which runs after that read), the number of
-    frames rendered and the last frame itself.  ``spin`` is set on
-    ``Scene.default``'s black hole.  Raises without a CUDA device."""
+    frames rendered and the last frame itself.  The scene is ``scene``
+    (on the card), or ``Scene.default`` with ``spin`` set on its black
+    hole.  Raises without a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures on a CUDA device; none is available")
     dev = torch.device("cuda")
-    scene = with_spin(Scene.default(dev), spin)
+    if scene is None:
+        scene = with_spin(Scene.default(dev), spin)
     cfg = RenderConfig(
         width=width, height=height,
         ladder=LadderConfig.for_resolution(width, height, 4),
@@ -87,7 +89,8 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
     # The frame's name in bhx/bench.py's form, "+rk45" for RK45.
     label = "schwarzschild" if geodesics == "pseudo" else f"kerr(spin={spin})"
     return {
-        "label": label + ("+rk45" if integrator == Integrator.RK45 else ""),
+        "label": label + ("+rk45" if integrator == Integrator.RK45 else "")
+        + (f"+{len(scene.meshes)} meshes" if scene.meshes else ""),
         "mrays_per_s": width * height / (ms * 1e-3) / 1e6,
         "ms_per_frame": ms,
         "host_ms_per_frame": host_ms,
@@ -102,6 +105,48 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
         "device": torch.cuda.get_device_name(0),
         "image": img,
     }
+
+
+def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
+    """One frame of ``scene`` under ``cfg`` on the card, after a warm-up:
+    ms a frame by CUDA events, and by ``torch.profiler`` the device's busy
+    ms a frame (the union of kernel intervals), its idle share, and the
+    busy ms of the march, composite, sky and mesh kernels (by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    render(scene, cfg)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        render(scene, cfg)
+    end.record()
+    end.synchronize()
+    frame_ms = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            render(scene, cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+    def busy_ms(part: str = "") -> float:
+        total, reach = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in kernels if part in e.name):
+            if b > reach:
+                total += b - max(a, reach)
+                reach = b
+        return total / iters / 1e3
+
+    device_ms = busy_ms()
+    return dict(frame_ms=frame_ms, device_ms=device_ms,
+                idle_frac=1.0 - device_ms / frame_ms,
+                device_events=len(kernels) / iters,
+                # Kernel names: march_*, shade_composite_kernel,
+                # sky_kernel, mesh_bvh_kernel / mesh_brute_kernel.
+                march_ms=busy_ms("march"), composite_ms=busy_ms("shade_composite"),
+                sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"),
+                mesh_bvh_ms=busy_ms("mesh_bvh"), mesh_brute_ms=busy_ms("mesh_brute"))
 
 
 def grad_check(width: int = 320, height: int = 180, rel_tol: float = 0.1) -> Dict:

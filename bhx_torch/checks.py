@@ -10,6 +10,9 @@ Tolerances:
 * sky on rows and on an interleaved record: 99.5% quantile of |err| <
   2e-3 and max < 0.2 (a star splat's edge moves with the last bit of the
   escape direction);
+* the mesh kernel M1, in both branches: bit-identical, ``max_abs_err ==
+  0.0`` in t, hit, color and normal (it repeats the plain traversal's
+  triangle and box tests operation for operation);
 * the render's gradient on the card against the CPU's
   (:func:`compare_gradients`): every parameter within 1e-3 of its
   largest entry.
@@ -27,6 +30,8 @@ thread per lane in pixel order, and its serial floor.
 :func:`composite_work` counts the composite's work from its slots alone:
 the valid slots, the rays that have one, and the SIMT efficiency of
 shading them one thread per ray against packed per block.
+:func:`mesh_work` counts M1's node visits and triangle tests per ray from
+the plain lockstep run, and :func:`mesh_bound` bounds it.
 """
 
 from __future__ import annotations
@@ -39,13 +44,15 @@ import torch
 
 from bhx_torch.bench import fd_stable
 from bhx_torch.config import RenderConfig
+from bhx_torch.geometry import traverse
 from bhx_torch.kernels import march as march_mod
+from bhx_torch.kernels import mesh as mesh_mod
 from bhx_torch.kernels import shade as shade_mod
 from bhx_torch.kernels import sky as sky_mod
 from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import final_level_retrace_mask, render
-from bhx_torch.scene import Scene
-from bhx_torch.tracer import march_batch, march_kwargs
+from bhx_torch.scene import Mesh, Scene
+from bhx_torch.tracer import camera_rays, march_batch, march_kwargs
 
 SKY_Q995 = 2e-3
 SKY_MAX = 0.2
@@ -365,3 +372,118 @@ def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
     worst = max(rel, key=rel.get)
     return dict(kept_frac=float(keep.mean()), max_rel_err=rel[worst], worst=worst,
                 rel_err=rel, ok=finite and rel[worst] < GRAD_REL)
+
+
+def last_level_rays(scene: Scene, cfg: RenderConfig):
+    """(origins (N, 3), directions (N, 3), active (N,)) of the ladder's
+    final level's first straight phase: its camera rays, with its re-trace
+    mask as the active set.  The largest mesh launch of a frame."""
+    lad = cfg.ladder_for_output()
+    o, d = camera_rays(scene.camera, *lad.resolution(lad.levels - 1))
+    return (o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+            final_level_retrace_mask(scene, cfg))
+
+
+# Float operations of M1 (csrc/mesh.cu), counted by hand as the march's
+# are: a ray's guarded inverse direction 6 (3 abs, 3 divisions) and its
+# root box 28 (6 adds of the position, 6 subtracts, 6 multiplies, 6 min
+# and max, 4 to reduce them), in the BVH branch alone; an inner node's
+# visit two boxes and a min and a max, 58; a triangle test 102 (edges 6,
+# cross product 9, its length and inverse 8, the scale 3, the ray's dot 5,
+# three differences 9, four determinants at 14, 2 abs, 3 divisions, u + v)
+# with 5 on the special-function unit (a square root, 4 divisions).  Left
+# out: a winning hit's color and normal (~26), and the offset of the
+# vertices by the mesh position (9 adds a triangle, which need not be
+# repeated a test).
+MESH_RAY_OPS, MESH_RAY_MUFU = 34, 3
+MESH_INNER_OPS = 58
+MESH_TRI_OPS, MESH_TRI_MUFU = 102, 5
+
+
+def _row_bytes(a: torch.Tensor) -> int:
+    return a.element_size() * (a.shape[1] if a.dim() > 1 else 1)
+
+
+def _mesh_bytes_read(mesh: Mesh, work: Dict) -> int:
+    """Bytes of ``mesh`` that the run needs, each read once: the mesh's
+    position; in brute force every triangle; through the BVH the count and
+    child index of the visited nodes, the boxes of the root and of the
+    visited inner nodes' children, the lookup entries tested and their
+    triangles; and the distinct vertices and normals of those triangles."""
+    if not int(work["live"].sum()):
+        return 0
+    total = _row_bytes(mesh.position[None])
+    if mesh.num_triangles <= mesh_mod.BRUTE_FORCE_THRESHOLD:
+        tris = torch.arange(mesh.num_triangles, device=mesh.tri_points.device)
+    else:
+        visited, entries = work["nodes_read"], work["lookup_read"]
+        left = mesh.node_left[visited & (mesh.node_count == 0)].long()
+        boxes = torch.zeros_like(visited)
+        boxes[0] = True
+        boxes[left] = True
+        boxes[left + 1] = True
+        tris = mesh.lookup[entries].long().unique()
+        total += (int(visited.sum()) * (_row_bytes(mesh.node_left) + _row_bytes(mesh.node_count))
+                  + int(boxes.sum()) * (_row_bytes(mesh.node_min) + _row_bytes(mesh.node_max))
+                  + int(entries.sum()) * _row_bytes(mesh.lookup))
+    points = mesh.tri_points[tris].unique().numel()
+    normals = mesh.tri_normals[tris].unique().numel()
+    return (total + tris.numel() * (_row_bytes(mesh.tri_points) + _row_bytes(mesh.tri_normals))
+            + points * _row_bytes(mesh.points) + normals * _row_bytes(mesh.normals))
+
+
+def mesh_work(origins, dirs, mesh: Mesh, active=None) -> Dict:
+    """M1's work on these rays, counted from the plain lockstep run
+    (``traverse.intersect_mesh_torch``): ``live`` lanes, inner-node and
+    leaf visits and triangle tests, their sums, means over the live lanes
+    and largest; ``mesh_bytes``, the bytes of the mesh the run reads
+    (:func:`_mesh_bytes_read`); ``simt_eff``, the SIMT efficiency of one
+    thread per ray in pixel order (visits over 32 x the sum over
+    consecutive 32-lane warps of the warp's most visits; triangle tests for
+    a brute-force mesh)."""
+    work = {}
+    traverse.intersect_mesh_torch(origins, dirs, mesh, active, work=work)
+    n, live = origins.shape[0], int(work["live"].sum())
+    brute = mesh.num_triangles <= mesh_mod.BRUTE_FORCE_THRESHOLD
+    per_lane = work["tri_tests"] if brute else work["inner_visits"] + work["leaf_visits"]
+    warp_max = torch.nn.functional.pad(per_lane, (0, (-n) % 32)).reshape(-1, 32).amax(1)
+    issued = 32.0 * float(warp_max.sum())
+    r = dict(n=n, live=live, masked=active is not None, brute=brute,
+             triangles=mesh.num_triangles, mesh_bytes=_mesh_bytes_read(mesh, work),
+             simt_eff=float(per_lane.sum()) / issued if issued else None)
+    for k in ("inner_visits", "leaf_visits", "tri_tests"):
+        total = int(work[k].sum())
+        r[k] = total
+        r[k + "_mean"] = total / live if live else 0.0
+        r[k + "_max"] = int(work[k].max()) if n else 0
+    return r
+
+
+def mesh_bound(work: Dict) -> Dict:
+    """M1's bound from :func:`mesh_work`'s counts: its float operations
+    (the live rays' inverse direction and root box through the BVH, the
+    inner visits', the triangle tests') and its bytes: the live rays' two
+    float32 triples and the (N,) active mask read, the (8, N) hits written
+    once, and the mesh's ``mesh_bytes``."""
+    n, live = work["n"], work["live"]
+    per_ray = 0 if work["brute"] else live
+    ops = (per_ray * MESH_RAY_OPS + work["inner_visits"] * MESH_INNER_OPS
+           + work["tri_tests"] * MESH_TRI_OPS)
+    mufu = per_ray * MESH_RAY_MUFU + work["tri_tests"] * MESH_TRI_MUFU
+    nbytes = (24.0 * live + (1.0 * n if work["masked"] else 0.0)
+              + 4.0 * mesh_mod.OUT_ROWS * n + work["mesh_bytes"])
+    return bound(float(ops), nbytes, float(mufu))
+
+
+def compare_mesh(origins, dirs, mesh: Mesh, active=None, reps: int = 1) -> Dict:
+    """M1 against the plain traversal on the card (bit-identical in t, hit,
+    color and normal), with the launch's work (:func:`mesh_work`) and bound
+    (:func:`mesh_bound`)."""
+    got, ms = _timed(lambda: mesh_mod.intersect_mesh_cuda(origins, dirs, mesh, active), reps)
+    want, plain_ms = _timed(lambda: traverse.intersect_mesh_torch(origins, dirs, mesh, active))
+    errs = {k: _max_abs_err(got[k].float(), want[k].float()) for k in want}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    work = mesh_work(origins, dirs, mesh, active)
+    return dict(work, **mesh_bound(work), err=errs, max_abs_err=max(errs.values()),
+                hits=int(got["hit"].sum()), ms=ms, plain_ms=plain_ms,
+                ok=finite and max(errs.values()) == 0.0)

@@ -120,6 +120,8 @@ class RenderConfig:
     show_disk_texture: bool = True
     show_redshift: bool = True
     show_sky: bool = True
+    # Test the scene's meshes in the straight phases (bhx/config.py:174).
+    render_meshes: bool = True
     texture_mode: str = "procedural"
 
     # Early-exit opacity threshold (reference ray.wgsl:578).

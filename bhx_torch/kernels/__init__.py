@@ -1,20 +1,22 @@
 """Hand-written CUDA kernels and their plain torch versions: the geodesic
 march (Euler, RK45 and Kerr instantiations), the disk shade + composite
-and its ingredients variant, and the sky finalize on record rows and on an
-interleaved record.  Each wrapper counts its launches, by kernel name, in
-its module's ``launches`` dict; :func:`launch_counts` reads them all.
-Each wrapper is a ``torch.autograd.Function`` whose backward replays the
-plain version under autograd; those replays are counted in the modules'
-``replays`` dicts, by the same names (:func:`replay_counts`).
-:func:`reset_launch_counts` zeroes both."""
+and its ingredients variant, the sky finalize on record rows and on an
+interleaved record, and the mesh intersection (whose plain version is
+``bhx_torch.geometry.traverse``).  Each wrapper counts its launches, by
+kernel name, in its module's ``launches`` dict; :func:`launch_counts`
+reads them all.  Each wrapper but the mesh's is a
+``torch.autograd.Function`` whose backward replays the plain version under
+autograd; those replays are counted in the modules' ``replays`` dicts, by
+the same names (:func:`replay_counts`).  :func:`reset_launch_counts`
+zeroes both."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-from bhx_torch.kernels import march, shade, sky
+from bhx_torch.kernels import march, mesh, shade, sky
 
-_MODULES = (march, shade, sky)
+_MODULES = (march, shade, sky, mesh)
 
 
 def launch_counts() -> Dict[str, int]:

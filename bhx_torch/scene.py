@@ -6,7 +6,9 @@ whole scene.  The constructors (``Scene.default``, ``Camera.default``,
 unless given another device, and raise when there is no card: the CPU
 (the plain versions of the kernels) is asked for by name.  The
 procedural main path never reads the baked disk/sky/LUT textures of
-``bhx.Scene``, so they are not carried here.
+``bhx.Scene``, so they are not carried here.  A :class:`Mesh` holds a
+triangle mesh with its BVH (``bhx_torch.geometry.obj.make_mesh`` builds
+one).
 """
 
 from __future__ import annotations
@@ -44,14 +46,17 @@ def const(values: tuple, device: torch.device) -> torch.Tensor:
 
 
 class _TensorData:
-    """``to(device)`` for a dataclass whose fields are tensors or such
-    dataclasses."""
+    """``to(device)`` for a dataclass whose fields are tensors, such
+    dataclasses, or tuples of them."""
 
     def to(self, device):
+        def move(v):
+            if isinstance(v, tuple):
+                return tuple(move(x) for x in v)
+            return v.to(device) if isinstance(v, (torch.Tensor, _TensorData)) else v
+
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), (torch.Tensor, _TensorData))
+            f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)
         })
 
 
@@ -139,31 +144,61 @@ class BlackHole(_TensorData):
 
 
 @dataclasses.dataclass
+class Mesh(_TensorData):
+    """A triangle mesh with a flat BVH (``bhx.scene.Mesh``).
+
+    BVH layout (``bhx_torch.geometry.bvh``): node i has the box
+    [node_min[i], node_max[i]]; if node_count[i] == 0 its children are
+    node_left[i] and node_left[i] + 1, otherwise it is a leaf holding the
+    triangles lookup[node_left[i] : node_left[i] + node_count[i]].  Index
+    arrays are int32."""
+
+    points: torch.Tensor  # (P, 3) float32
+    normals: torch.Tensor  # (Nn, 3) float32
+    tri_points: torch.Tensor  # (T, 3) int32 indices into points
+    tri_normals: torch.Tensor  # (T, 3) int32 indices into normals
+    node_min: torch.Tensor  # (B, 3) float32
+    node_max: torch.Tensor  # (B, 3) float32
+    node_left: torch.Tensor  # (B,) int32
+    node_count: torch.Tensor  # (B,) int32
+    lookup: torch.Tensor  # (T,) int32
+    position: torch.Tensor  # (3,) world offset (reference Model.position)
+    visible: torch.Tensor  # () bool
+    name: str = "mesh"
+
+    @property
+    def num_triangles(self) -> int:
+        return self.tri_points.shape[0]
+
+
+# The int32 index arrays of a Mesh.
+MESH_INDEX_FIELDS = ("tri_points", "tri_normals", "node_left", "node_count", "lookup")
+
+
+@dataclasses.dataclass
 class Scene(_TensorData):
-    """Camera, black hole, clock and the learnable 16x16x4 ``disk_gain``
-    grid (a multiplicative RGBA gain over the disk texture's uv square;
-    all-ones is the identity)."""
+    """Camera, black hole, clock, the learnable 16x16x4 ``disk_gain`` grid
+    (a multiplicative RGBA gain over the disk texture's uv square; all-ones
+    is the identity) and a tuple of :class:`Mesh`."""
 
     camera: Camera
     black_hole: BlackHole
     time: torch.Tensor  # () seconds, drives disk texture rotation
     disk_gain: torch.Tensor  # (16, 16, 4)
-    meshes: Tuple = ()
+    meshes: Tuple[Mesh, ...] = ()
 
     def __post_init__(self):
-        if len(self.meshes):
-            raise NotImplementedError(
-                "meshes are not ported to bhx_torch yet (ROADMAP A12)"
-            )
+        self.meshes = tuple(self.meshes)
 
     @staticmethod
-    def default(device=None) -> "Scene":
+    def default(device=None, meshes: Tuple[Mesh, ...] = ()) -> "Scene":
         device = _device(device)
         return Scene(
             camera=Camera.default(device),
             black_hole=BlackHole.default(device),
             time=_f32(0.0, device),
             disk_gain=torch.ones((16, 16, 4), dtype=torch.float32, device=device),
+            meshes=meshes,
         )
 
 
@@ -180,14 +215,32 @@ def scene_from_state(state: Mapping, device=None) -> Scene:
     ``bhx.scene.scene_to_state`` returns, so both packages render the same
     scene.  The baked textures and materials in ``state`` are not used by
     the procedural path and are ignored; a ``None`` gain becomes the
-    all-ones identity grid.  On the CUDA card unless ``device`` names
-    another."""
+    all-ones identity grid.  Each mesh comes as a dict of its fields, its
+    ``name`` a 0-d string array; index arrays stay int32.  On the CUDA
+    card unless ``device`` names another."""
     device = _device(device)
 
     def build(cls, sub):
         return cls(**{
             f.name: _f32(sub[f.name], device) for f in dataclasses.fields(cls)
         })
+
+    def mesh(sub):
+        missing = [f.name for f in dataclasses.fields(Mesh) if f.name not in sub]
+        if missing:
+            raise ValueError(f"a mesh's state lacks {missing}")
+        fields = {}
+        for f in dataclasses.fields(Mesh):
+            v = sub[f.name]
+            if f.name == "name":
+                fields[f.name] = str(np.asarray(v))
+            elif f.name == "visible":
+                fields[f.name] = torch.tensor(bool(np.asarray(v)), device=device)
+            elif f.name in MESH_INDEX_FIELDS:
+                fields[f.name] = torch.tensor(np.asarray(v, np.int32), device=device)
+            else:
+                fields[f.name] = _f32(v, device)
+        return Mesh(**fields)
 
     gain = state.get("disk_gain")
     if gain is None:
@@ -197,5 +250,5 @@ def scene_from_state(state: Mapping, device=None) -> Scene:
         black_hole=build(BlackHole, state["black_hole"]),
         time=_f32(state["time"], device),
         disk_gain=_f32(gain, device),
-        meshes=tuple(state.get("meshes", ())),
+        meshes=tuple(mesh(m) for m in state.get("meshes", ())),
     )

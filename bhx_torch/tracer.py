@@ -3,12 +3,15 @@
 
 A trace runs ``straight -> [march -> straight] x 2``, then one last
 straight phase.  A straight phase tests rays outside the relativity
-sphere against it and advances entering rays to its boundary; a march
-phase runs the geodesic march kernel on the rays inside.  Nothing is
-shaded during the trace: the march records up to K=4 disk crossings per
-ray, and one batched shade + composite kernel runs at the end (the
-deferred record of ``march_mode="pallas"``).  The result is the sky-free
-record: 8 rows ``cr cg cb alpha amount dx dy dz``.
+sphere against it and against the scene's meshes: the nearer wins, a mesh
+hit absorbs the ray, and a sphere hit advances the ray to the boundary; a
+march phase runs the geodesic march kernel on the rays inside.  Nothing
+is shaded during the trace: the march records up to K=4 disk crossings
+per ray, a straight phase at most one opaque mesh hit, and one batched
+shade + composite kernel runs at the end (the deferred record of
+``march_mode="pallas"``), the mesh hit weighted by the transmission of
+every crossing before it.  The result is the sky-free record: 8 rows
+``cr cg cb alpha amount dx dy dz``.
 
 Re-entry rounds run as masked launches whatever their live count: a phase
 with no live ray changes nothing, so no host sync is needed to skip it.
@@ -28,6 +31,8 @@ import torch
 
 from bhx_torch import kerr
 from bhx_torch.config import Integrator, RenderConfig
+from bhx_torch.geometry.intersect import MISS_T, T_MIN
+from bhx_torch.geometry.traverse import intersect_meshes
 from bhx_torch.kernels.march import (
     CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, SLOT_ROWS, _OUT_FIXED, march, pack_params,
 )
@@ -35,9 +40,6 @@ from bhx_torch.kernels.shade import composite, pack_shade_params
 from bhx_torch.scene import Camera, Scene, const
 
 DEFAULT_ROUNDS = 2
-# "No intersection" distance and the reference's t_min (ray.wgsl:492-493).
-MISS_T = 1e8
-T_MIN = 1e-8
 
 
 def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -69,7 +71,7 @@ def camera_rays(camera: Camera, width: int, height: int
 
 def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
     """Rows state of a fresh batch (``bhx.tracer._init_state`` with
-    ``deferred=True``, without the mesh fields)."""
+    ``deferred=True``)."""
     n = origins.shape[0]
     o = origins.to(torch.float32)
     d = directions.to(torch.float32)
@@ -87,6 +89,9 @@ def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
         # K crossing slots of CROSS_FIELDS rows each, in crossing order.
         slots=o.new_zeros((MAX_CROSSINGS * CROSS_FIELDS, n)),
         count=zeros,
+        # The opaque mesh hit of a straight phase: its clipped color.
+        mcr=zeros, mcg=zeros, mcb=zeros,
+        mesh_hit=false,
         horizon=false,
         # True (uncapped) crossing count; its excess over ``count``
         # measures the crossings the K slots dropped.
@@ -112,11 +117,14 @@ def _merge_slots(slots_a, count_a, slots_b, count_b):
             torch.clamp(count_a + count_b, 0.0, float(MAX_CROSSINGS)))
 
 
-def _straight_phase(state: Dict, black_hole, cfg: RenderConfig) -> Dict:
-    """Straight-ray test of status-0 rays against the relativity sphere
-    (reference outside branch, ray.wgsl:554-569, without meshes): a hit
-    advances the ray to the boundary and starts its march; a miss escapes."""
-    bh = black_hole
+def _straight_phase(state: Dict, scene: Scene, cfg: RenderConfig) -> Dict:
+    """Straight-ray test of status-0 rays (reference outside branch,
+    ray.wgsl:554-569; ``bhx/tracer.py:199-320``): the nearer of a mesh hit
+    and the relativity sphere's entry wins.  A mesh hit records its color
+    and absorbs the ray (meshes are opaque); a sphere hit advances the ray
+    to the boundary and starts its march; neither escapes.  A ray already
+    inside the sphere enters whatever the meshes."""
+    bh = scene.black_hole
     mask = state["status"] == 0
     px, py, pz = state["px"], state["py"], state["pz"]
     dx, dy, dz = state["dx"], state["dy"], state["dz"]
@@ -140,8 +148,29 @@ def _straight_phase(state: Dict, black_hole, cfg: RenderConfig) -> Dict:
     sphere_t = torch.where(v1, t1, torch.where(v2, t2, MISS_T))
     inside = oc2 < r_sphere * r_sphere
 
-    enters = mask & (inside | v1 | v2)
-    escapes = mask & ~enters
+    state = dict(state)
+    if cfg.render_meshes and scene.meshes:
+        # Mesh hits carry no gradient (bhx wraps them in stop_gradient).
+        with torch.no_grad():
+            mesh = intersect_meshes(torch.stack([px, py, pz], dim=-1),
+                                    torch.stack([dx, dy, dz], dim=-1), scene.meshes,
+                                    active=mask)
+        mesh_hit = mesh["hit"]
+        enters = mask & (inside | ((v1 | v2) & (sphere_t < mesh["t"])))
+        mesh_wins = mask & ~enters & mesh_hit
+        escapes = mask & ~enters & ~mesh_hit
+        # Recorded for the composite, which weights it by the transmission
+        # through the crossings before it (ray.wgsl:571-576, opacity 1).
+        mc = torch.clamp(mesh["color"], 0.0, 1.0)
+        for c, name in enumerate(("mcr", "mcg", "mcb")):
+            state[name] = torch.where(mesh_wins, mc[:, c], state[name])
+        state["mesh_hit"] = state["mesh_hit"] | mesh_wins
+        state["hit"] = state["hit"] | mesh_wins
+        status = torch.where(mesh_wins, 3, state["status"])
+    else:
+        enters = mask & (inside | v1 | v2)
+        escapes = mask & ~enters
+        status = state["status"]
     adv_t = torch.where(enters & ~inside, sphere_t, 0.0)
     npx = px + dx * adv_t
     npy = py + dy * adv_t
@@ -150,11 +179,9 @@ def _straight_phase(state: Dict, black_hole, cfg: RenderConfig) -> Dict:
     nry = npy - bh.position[1]
     nrz = npz - bh.position[2]
 
-    state = dict(state)
     state.update(
         px=npx, py=npy, pz=npz,
-        status=torch.where(enters, 1, torch.where(escapes, 2, state["status"]))
-        .to(torch.int32),
+        status=torch.where(enters, 1, torch.where(escapes, 2, status)).to(torch.int32),
         entered=state["entered"] | enters,
         h=torch.where(enters, cfg.step_size, state["h"]),
         closest=torch.where(enters, torch.sqrt(nrx * nrx + nry * nry + nrz * nrz),
@@ -269,16 +296,18 @@ def _trace_phases(state: Dict, scene: Scene, cfg: RenderConfig,
     _, disk_normal = bh.disk_frame()
     params = pack_params(bh, disk_normal, cfg)
     for r in range(rounds):
-        state = _straight_phase(state, bh, cfg)
+        state = _straight_phase(state, scene, cfg)
         state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
     return state
 
 
 def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
                     cam_dist: torch.Tensor):
-    """One batched shade + composite of the recorded crossings; a ray
-    captured by the horizon keeps no sky transmission.  Returns the
-    (4, N) rows r, g, b, amount."""
+    """One batched shade + composite of the recorded crossings, then the
+    opaque mesh hit weighted by the transmission through them all
+    (``bhx/tracer.py:1012-1019``); a ray that hit a mesh or was captured by
+    the horizon keeps no sky transmission.  Returns the (4, N) rows r, g,
+    b, amount."""
     bh = scene.black_hole
     n = cam_dist.shape[0]
     if cfg.show_disk:
@@ -290,9 +319,11 @@ def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
         )
     else:
         rgbt = torch.cat([cam_dist.new_zeros((3, n)), cam_dist.new_ones((1, n))])
-    return torch.cat([
-        rgbt[:3], torch.where(state["horizon"], 0.0, rgbt[3]).unsqueeze(0)
-    ])
+    trans_total = rgbt[3]
+    mesh_hit = state["mesh_hit"]
+    rgb = [torch.where(mesh_hit, rgbt[c] + trans_total * state[m], rgbt[c])
+           for c, m in enumerate(("mcr", "mcg", "mcb"))]
+    return torch.stack(rgb + [torch.where(mesh_hit | state["horizon"], 0.0, trans_total)])
 
 
 def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
@@ -313,7 +344,7 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
     state = _trace_phases(state, scene, cfg, rounds)
     # Rays that want a straight phase after the last march get one more;
     # any that would re-enter again are treated as escapes.
-    state = _straight_phase(state, bh, cfg)
+    state = _straight_phase(state, scene, cfg)
     status = torch.where(state["status"] == 1, 2, state["status"])
     state["status"] = status.to(torch.int32)
 
@@ -348,10 +379,10 @@ def march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
         state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
     _, normal = bh.disk_frame()
     params = pack_params(bh, normal, cfg)
-    state = _straight_phase(state, bh, cfg)
+    state = _straight_phase(state, scene, cfg)
     for r in range(march_round):
         state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
-        state = _straight_phase(state, bh, cfg)
+        state = _straight_phase(state, scene, cfg)
     rays, _ = _march_inputs(state, cfg)
     return rays, params, _norm(o - bh.position)
 

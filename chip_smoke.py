@@ -60,13 +60,26 @@ Phases, each printed as it finishes:
    own render at mass 0.6, each step timed with CUDA events, with its
    peak memory and its launches and replays; gated on finite, falling
    losses, the mass moving toward 0.6, and the march, composite and sky
-   kernels launched and the march replayed in every step.
+   kernels launched and the march replayed in every step;
+7. meshes: the viewer's 12-triangle cube (brute-force branch of the mesh
+   kernel M1) and a 524,288-triangle torus generated from seed 0, written
+   to an OBJ file and loaded through ``make_mesh`` (the C++ parser and BVH
+   builder at full size; BVH branch), outside the relativity sphere, seen
+   by a camera at (0, 0, -40): ``make_mesh``'s seconds; M1 against the
+   plain lockstep traversal at the frame's own shapes (the last ladder
+   level's first straight phase, against each mesh; bit-identical, with
+   its work and bound); the 1918x1081 frame through ``run_bench`` as in
+   phase 4, with ``mesh`` launched 24 times a frame (4 traces x 3
+   straight phases x 2 meshes); at least 5% of the frame's pixels changed
+   by the meshes; the frame's device time by kernel (``torch.profiler``)
+   with the meshes and without them; and a dense 192x108 frame of the
+   scene on the card against the plain path on the CPU (gated at 2%).
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches in the frames of phase 4, its launches per frame, max |err|,
-ms, plain ms, bound ms and what bounds it; no single PyTorch call
-computes any of them, so ``library_ms`` is null); the last line is the
-device record.  Exits non-zero, printing neither, when
+launches in the frames of phase 4, or of phase 7 for ``mesh``, its
+launches per frame, max |err|, ms, plain ms, bound ms and what bounds it;
+no single PyTorch call computes any of them, so ``library_ms`` is null);
+the last line is the device record.  Exits non-zero, printing neither, when
 there is no CUDA device, when ``bhx_torch`` cannot be imported, or when
 any phase fails.
 """
@@ -74,8 +87,10 @@ any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -98,15 +113,23 @@ def main() -> int:
 
     import numpy as np
 
+    import dataclasses
+
+    # The meshes are the tests' own (numpy alone): the viewer's cube and the
+    # seeded torus.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_mesh_data import cube_arrays, torus_arrays, write_obj
+
     from bhx_torch import checks
-    from bhx_torch.bench import grad_check, run_bench
+    from bhx_torch.bench import frame_profile, grad_check, run_bench
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
     from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
     from bhx_torch.kernels import shade, sky
+    from bhx_torch.geometry import bvh, obj
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
     from bhx_torch.parallel import apply_params, fit_scene, scene_params
     from bhx_torch.pipeline import ladder_trace_rows, render, trace_image_record_rows
-    from bhx_torch.scene import Scene, with_spin
+    from bhx_torch.scene import Camera, Scene, with_spin
     from bhx_torch.tracer import march_batch, march_kwargs
 
     failures = []
@@ -230,7 +253,7 @@ def main() -> int:
     # --- 4. the frames through the bench entry point ---
     # The counts are zeroed just before each run; run_bench reads them
     # just after its last frame, before its overflow diagnostic.
-    def frame_phase(name: str, march_kernel: str, **kw) -> dict:
+    def frame_phase(name: str, march_kernel: str, extra=(), **kw) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         bench = run_bench(1918, 1081, **kw)
@@ -243,7 +266,7 @@ def main() -> int:
         # Every frame makes the same launches, so the run's counts are
         # exactly frames x one frame's; each kernel of the path ran in every
         # frame and no other kernel ran.
-        path = (march_kernel, "composite", "sky")
+        path = (march_kernel, "composite", "sky", *extra)
         counts_ok = all(
             (per_frame[k] > 0) == (k in path) and counts[k] == bench["frames"] * per_frame[k]
             for k in counts)
@@ -335,6 +358,62 @@ def main() -> int:
           dict(losses=losses, mass=mass, s_per_step=[st["s"] for st in steps],
                peak_mem_gb=max(st["peak_mem_gb"] for st in steps)))
 
+    # --- 7. meshes: the cube and a 524,288-triangle torus ---
+    cube = obj.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube",
+                         scale=1.0, flip_y=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "torus.obj")
+        t0 = time.perf_counter()
+        write_obj(path, *torus_arrays(512, 512))
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torus = obj.make_mesh(path, position=(-6.0, 0.0, -27.0), name="torus")
+        torch.cuda.synchronize()
+        make_mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = obj.load_obj(path)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = bvh.build_bvh(parsed[0], parsed[2])
+        bvh_s = time.perf_counter() - t0
+    check("make_mesh torus", torus.num_triangles == 524288 and cube.num_triangles == 12,
+          dict(triangles=torus.num_triangles, nodes=tree.num_nodes, depth=tree.max_depth(),
+               max_leaf=int(tree.node_count.max()),
+               obj_write_s=gen_s, make_mesh_s=make_mesh_s, parse_s=parse_s, bvh_s=bvh_s))
+    mesh_scene = dataclasses.replace(
+        scene, meshes=(cube, torus),
+        camera=Camera(position=torch.tensor([0.0, 0.0, -40.0], device=dev),
+                      forward=torch.tensor([0.0, 0.0, 1.0], device=dev),
+                      fov=torch.tensor(1.0, device=dev)))
+    mesh_r = {}
+    o, d, act = checks.last_level_rays(mesh_scene, cfg)
+    for name, m in (("torus", torus), ("cube", cube)):
+        r = checks.compare_mesh(o, d, m, act, reps=10)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        check(f"mesh {name} last level", r["ok"], r)
+        mesh_r[name] = r
+    meshes = frame_phase("frame 1918x1081 meshes", "march", extra=("mesh",), iters=3,
+                         scene=mesh_scene)
+    if meshes["launches_per_frame"]["mesh"] != 24:
+        check("mesh launches a frame", False, dict(meshes["launches_per_frame"]))
+    with torch.no_grad():
+        img = render(mesh_scene, cfg)
+        bare = render(mesh_scene, cfg.replace(render_meshes=False))
+    changed = float((img - bare).abs().gt(2e-2).any(-1).float().mean())
+    check("frame 1918x1081 meshes in view", changed >= 0.05, dict(changed_frac=changed))
+    # Where a frame's time goes, with the meshes and without them, same view.
+    for name, p_cfg in (("meshes", cfg), ("meshes off", cfg.replace(render_meshes=False))):
+        prof = frame_profile(mesh_scene, p_cfg)
+        check(f"profile 1918x1081 {name}", prof["device_ms"] > 0.0, prof)
+    on_card = render(mesh_scene, small).cpu()
+    t0 = time.perf_counter()
+    on_cpu = render(mesh_scene.to("cpu"), small)
+    cpu_s = time.perf_counter() - t0
+    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+    check("frame 192x108 card vs cpu meshes", bool(torch.isfinite(on_card).all()) and bad <= 0.02,
+          dict(bad_frac=bad, gate=0.02, max_abs_err=float((on_card - on_cpu).abs().max()),
+               cpu_s=cpu_s))
+
     if failures:
         _die("failed phases: " + ", ".join(failures))
 
@@ -359,6 +438,14 @@ def main() -> int:
         entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", euler, sky_r),
         entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246", None, ing_r),
         entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723", None, skyf_r),
+        # No Pallas counterpart: M1 replaces the jnp lockstep traversal and
+        # brute force.  Its figures are the torus's (BVH branch); the cube's
+        # (brute force) ride beside them.
+        dict(entry("mesh", "mesh.cu",
+                   "bhx/geometry/traverse.py:143 (_intersect_bvh; :98 _intersect_brute; "
+                   "jnp, no pallas_call)", meshes, mesh_r["torus"]),
+             brute={k: mesh_r["cube"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Card-only tests: each CUDA kernel of bhx_torch against its plain torch
-version on the card, proof that CUDA tensors launch the kernels (with and
-without autograd), and the card's gradient against the CPU's.
+version on the card (the mesh kernel M1 in both branches, with active
+masks), proof that CUDA tensors launch the kernels (with and without
+autograd, and with meshes in the scene), the card's frames against the
+CPU's, and the card's gradient against the CPU's.
 Every test here is marked ``gpu`` and skips without a CUDA device.
 
 On a machine with a card (the root conftest.py imports jax, which such a
@@ -21,11 +23,17 @@ import bhx_torch
 from bhx_torch import checks
 from bhx_torch.kernels import launch_counts, replay_counts, reset_launch_counts
 from bhx_torch.kernels import march as tmarch
+from bhx_torch.kernels import mesh as tmesh
 from bhx_torch.kernels import shade as tshade
 from bhx_torch.kernels import sky as tsky
-from bhx_torch.scene import with_spin
+from bhx_torch.geometry import traverse
+from bhx_torch.scene import Camera, with_spin
 from bhx_torch.tracer import march_batch
 from bhx_torch.tracer import march_kwargs as tmarch_kwargs
+
+# tests/ is on sys.path under pytest (it has no __init__.py); a package
+# named ``tests`` elsewhere on the path would shadow ``tests.torch_mesh_data``.
+from torch_mesh_data import cube_arrays, torus_arrays, write_obj
 
 _SLOTS = slice(tmarch.OUT_FIXED, tmarch.OUT_FIXED + tmarch.SLOT_ROWS)
 
@@ -268,3 +276,92 @@ def test_small_frame_gradient_matches_cpu(frame):
     r = checks.compare_gradients(scene, cfg)
     assert r["kept_frac"] > 0.3, r
     assert r["ok"], r
+
+
+@pytest.fixture(scope="module")
+def mesh_scene(frame, tmp_path_factory):
+    """The default scene seen from outside the relativity sphere with the
+    viewer's cube (brute force) and a 2,048-triangle torus loaded from an
+    OBJ file (BVH), on the card."""
+    scene, _ = frame
+    path = tmp_path_factory.mktemp("obj") / "torus.obj"
+    write_obj(path, *torus_arrays(32, 32))
+    cube = bhx_torch.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube",
+                               scale=1.0, flip_y=False)
+    torus = bhx_torch.make_mesh(str(path), position=(-6.0, 0.0, -27.0), name="torus")
+    camera = Camera(position=torch.tensor([0.0, 0.0, -40.0], device="cuda"),
+                    forward=torch.tensor([0.0, 0.0, 1.0], device="cuda"),
+                    fov=torch.tensor(1.0, device="cuda"))
+    return dataclasses.replace(scene, camera=camera, meshes=(cube, torus))
+
+
+def _mesh_rays(n: int = 20000, seed: int = 3):
+    """Rays from around the outside camera toward both meshes (some through
+    the torus hole), and an active mask with a quarter of the lanes off."""
+    rng = np.random.default_rng(seed)
+    o = np.array([0.0, 0.0, -40.0]) + rng.normal(0.0, 1.0, (n, 3))
+    centers = np.where(rng.random((n, 1)) < 0.5, [-6.0, 0.0, -27.0], [6.0, 0.0, -30.0])
+    d = centers + rng.uniform(-4.5, 4.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    as_t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+    return as_t(o), as_t(d), torch.tensor(rng.random(n) < 0.75, device="cuda")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
+@pytest.mark.parametrize("branch", ["brute", "bvh"])
+def test_mesh_kernel_bit_identical(mesh_scene, branch, masked):
+    mesh = mesh_scene.meshes[0 if branch == "brute" else 1]
+    o, d, active = _mesh_rays()
+    before = launch_counts()["mesh"]
+    r = checks.compare_mesh(o, d, mesh, active if masked else None)
+    assert r["ok"] and r["hits"] > 1000, r
+    assert launch_counts()["mesh"] == before + 1
+    if masked:
+        got = tmesh.intersect_mesh_cuda(o, d, mesh, active)
+        assert not bool(got["hit"][~active].any())
+
+
+def test_mesh_kernel_leaf_cap(mesh_scene):
+    """Leaves of up to 16 triangles (leaf_size=16): the kernel tests their
+    first 4, as the plain traversal does."""
+    p, n, tri = torus_arrays(32, 32)
+    mesh = bhx_torch.make_mesh((p, n, tri, tri), position=(-6.0, 0.0, -27.0),
+                               leaf_size=16)
+    assert int(mesh.node_count.max()) > 4
+    o, d, active = _mesh_rays()
+    r = checks.compare_mesh(o, d, mesh, active)
+    assert r["ok"] and r["hits"] > 1000, r
+
+
+def test_mesh_frame_launches_the_kernel(mesh_scene, monkeypatch):
+    """With meshes in the scene, CUDA tensors reach M1 and never the plain
+    traversal: one launch per mesh per straight phase (3 in a dense trace),
+    and a fit through it still has a gradient."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain traversal")
+
+    monkeypatch.setattr(traverse, "intersect_mesh_torch", boom)
+    mass = mesh_scene.black_hole.mass.detach().clone().requires_grad_()
+    scene = dataclasses.replace(mesh_scene, black_hole=dataclasses.replace(
+        mesh_scene.black_hole, mass=mass))
+    cfg = bhx_torch.RenderConfig(width=96, height=54, use_ladder=False)
+    reset_launch_counts()
+    img = bhx_torch.render(scene, cfg)
+    torch.cuda.synchronize()
+    assert launch_counts()["mesh"] == 3 * 2
+    (g,) = torch.autograd.grad(img.sum(), mass)
+    assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(g))
+
+
+def test_mesh_frame_matches_cpu(mesh_scene):
+    cfg = bhx_torch.RenderConfig(
+        width=64, height=36, use_ladder=False, max_iterations=600,
+        bloom=bhx_torch.BloomConfig(enabled=False),
+        fxaa=bhx_torch.FxaaConfig(enabled=False), tonemap=False,
+    )
+    on_card = bhx_torch.render(mesh_scene, cfg).cpu()
+    on_cpu = bhx_torch.render(mesh_scene.to("cpu"), cfg)
+    without = bhx_torch.render(mesh_scene.to("cpu"), cfg.replace(render_meshes=False))
+    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+    assert bad <= 0.02, bad
+    assert float((on_cpu - without).abs().gt(2e-2).any(-1).float().mean()) > 0.05

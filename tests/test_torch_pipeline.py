@@ -1,7 +1,10 @@
 """The whole bhx_torch slice against the JAX reference on the CPU: camera
 rays, the ladder refine decision, each post stage, the phase identities,
 and ``bhx_torch.render`` against ``bhx.render(march_mode="fast")`` and the
-``ladder_post``, ``rk45_disk_shift`` and ``kerr_spin09`` golden images."""
+``ladder_post``, ``rk45_disk_shift``, ``kerr_spin09``, ``mesh_feather`` and
+``euler_sky`` golden images; with meshes (the viewer's cube and a
+2,048-triangle torus seen from outside the relativity sphere), densely and
+on the ladder; and the feature toggles, with and without meshes."""
 
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from bhx_torch import post as tpost
 from bhx_torch import tracer as ttracer
 from bhx_torch.pipeline import _refine_masks, final_level_retrace_mask
 
-from tests.common import FAST_CFG, LADDER_CFG, small_scene
+from tests.common import FAST_CFG, LADDER_CFG, outside_camera, small_scene
 from tests.test_golden import _cases as golden_cases
+from tests.torch_mesh_data import cube_arrays, jax_mesh, torus_arrays, write_obj
 
 torch.set_num_threads(2)
 
@@ -157,14 +161,14 @@ def test_phases_with_no_live_ray_change_nothing():
     o, d = ttracer.camera_rays(scene.camera, 32, 18)
     state = ttracer._init_state(o.reshape(-1, 3), d.reshape(-1, 3))
     state = ttracer._trace_phases(state, scene, cfg, 2)
-    state = ttracer._straight_phase(state, scene.black_hole, cfg)
+    state = ttracer._straight_phase(state, scene, cfg)
     state["status"] = torch.where(state["status"] == 1, 2, state["status"]).to(torch.int32)
     assert not bool(((state["status"] == 0) | (state["status"] == 1)).any())
     assert bool((state["count"] > 0).any())  # there are slots to preserve
     _, normal = scene.black_hole.disk_frame()
     params = bhx_torch.kernels.march.pack_params(scene.black_hole, normal, cfg)
     after = ttracer._march_phase(
-        ttracer._straight_phase(state, scene.black_hole, cfg),
+        ttracer._straight_phase(state, scene, cfg),
         scene.black_hole, params, cfg, first_phase=False,
     )
     assert after.keys() == state.keys()
@@ -209,17 +213,19 @@ def test_render_matches_ladder_post_golden():
     assert bad <= 0.02, f"{bad:.2%} pixels differ by more than 2e-2"
 
 
-# Each golden of a march branch this slice ports, with its gate: RK45 at
-# the port's 2% bad-pixel gate, Kerr at 3%, the reference's own allowance
-# for its Kerr kernel against its jnp march (tests/test_pallas.py:70-74).
-_GOLDEN_GATES = {"rk45_disk_shift": 0.02, "kerr_spin09": 0.03}
+# Each golden of a march branch or a mesh scene the port renders, with its
+# gate: RK45 and the mesh scene (the cube, BASELINE config 3) at the port's
+# 2% bad-pixel gate, Kerr at 3%, the reference's own allowance for its
+# Kerr kernel against its jnp march (tests/test_pallas.py:70-74).
+_GOLDEN_GATES = {"rk45_disk_shift": 0.02, "kerr_spin09": 0.03, "mesh_feather": 0.02}
 
 
 @pytest.mark.parametrize("name", sorted(_GOLDEN_GATES))
 def test_render_matches_march_golden(name):
     """``render`` on the CPU against the committed golden of the same scene
-    and config (tests/test_golden.py; 64x36, no post), rendered by bhx's
-    jnp march, which composites every crossing as it goes."""
+    and config (tests/test_golden.py; 64x36, no post, meshes converted
+    through ``scene_to_state``), rendered by bhx's jnp march, which
+    composites every crossing as it goes."""
     scene, cfg = golden_cases()[name]
     tscene = bhx_torch.scene_from_state(scene_to_state(scene), "cpu")
     got = bhx_torch.render(tscene, torch_cfg(cfg)).numpy()
@@ -250,6 +256,17 @@ def test_import_and_render_pull_in_no_jax():
         "scene = bhx_torch.Scene.default('cpu')\n"
         "img = bhx_torch.render(scene, cfg)\n"
         "assert tuple(img.shape) == (18, 32, 3), img.shape\n"
+        "from tests.torch_mesh_data import cube_arrays, torus_arrays\n"
+        "p, n, tri = torus_arrays(16, 16)\n"
+        "meshes = (bhx_torch.make_mesh(cube_arrays(), (6.0, 0.0, -30.0), scale=1.0,"
+        " flip_y=False, device='cpu'),"
+        " bhx_torch.make_mesh((p, n, tri, tri), (-6.0, 0.0, -27.0), leaf_size=2,"
+        " device='cpu'))\n"
+        "far = dataclasses.replace(scene.camera, position=torch.tensor([0.0, 0.0, -40.0]))\n"
+        "with_meshes = dataclasses.replace(scene, camera=far, meshes=meshes)\n"
+        "img = bhx_torch.render(with_meshes, cfg)\n"
+        "bare = bhx_torch.render(with_meshes, cfg.replace(render_meshes=False))\n"
+        "assert float((img - bare).abs().max()) > 0.05\n"
         "kerr = dataclasses.replace(scene, black_hole=dataclasses.replace("
         "scene.black_hole, spin=torch.tensor(0.9)))\n"
         "img = bhx_torch.render(kerr, cfg.replace(geodesics='kerr'))\n"
@@ -258,6 +275,7 @@ def test_import_and_render_pull_in_no_jax():
         "from bhx_torch.parallel import fit_scene\n"
         "params, losses = fit_scene(scene, img.detach(), cfg, steps=1)\n"
         "assert set(params) >= {'mass', 'cam_position'} and len(losses) == 1\n"
+        "import bhx_torch.geometry.traverse, bhx_torch.geometry.native, bhx_torch.checks\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bhx'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -267,3 +285,98 @@ def test_import_and_render_pull_in_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+@pytest.fixture(scope="module")
+def mesh_scenes(tmp_path_factory):
+    """(bhx scene, bhx_torch scene): ``small_scene`` from the outside
+    camera with the viewer's cube (brute force) and a 2,048-triangle torus
+    (BVH) loaded through the port's ``make_mesh`` from an OBJ file; bhx
+    gets the same arrays."""
+    path = tmp_path_factory.mktemp("obj") / "torus.obj"
+    write_obj(path, *torus_arrays(32, 32))
+    cube = bhx_torch.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube",
+                               scale=1.0, flip_y=False, device="cpu")
+    torus = bhx_torch.make_mesh(str(path), position=(-6.0, 0.0, -27.0), name="torus",
+                                device="cpu")
+    jscene = dataclasses.replace(small_scene(), camera=outside_camera(),
+                                 meshes=(jax_mesh(cube), jax_mesh(torus)))
+    return jscene, bhx_torch.scene_from_state(scene_to_state(jscene), "cpu")
+
+
+@pytest.mark.parametrize("name", ["dense", "ladder"])
+def test_mesh_render_matches_bhx(mesh_scenes, name):
+    """The mesh scene against ``bhx.render`` (fast), dense at 64x36 and on
+    the small ladder; the meshes change a fifth of the pixels."""
+    jscene, tscene = mesh_scenes
+    cfg = {"dense": FAST_CFG, "ladder": LADDER_CFG}[name]
+    want = np.asarray(render_jit(jscene, cfg), np.float32)
+    got = bhx_torch.render(tscene, torch_cfg(cfg)).numpy()
+    bare = bhx_torch.render(tscene, torch_cfg(cfg).replace(render_meshes=False)).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    bad = _bad_frac(got, want)
+    assert bad <= 0.02, f"{bad:.2%} pixels differ by more than 2e-2"
+    assert _bad_frac(got, bare) > 0.1
+
+
+def _cube_scenes(visible: bool):
+    scene = _torch_scene()
+    cube = bhx_torch.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube",
+                               scale=1.0, flip_y=False, device="cpu")
+    cube = dataclasses.replace(cube, visible=torch.tensor(visible))
+    far = dataclasses.replace(scene.camera, position=torch.tensor([0.0, 0.0, -40.0]))
+    return (dataclasses.replace(scene, camera=far, meshes=(cube,)),
+            dataclasses.replace(scene, camera=far))
+
+
+def test_mesh_visible_outside_sphere():
+    """tests/test_tracer.py:107 for the port: a cube outside the sphere,
+    seen from outside, shows in the record."""
+    with_cube, without = _cube_scenes(True)
+    cfg = torch_cfg(FAST_CFG)
+    rec_m = bhx_torch.pipeline.trace_image_record_rows(with_cube, cfg, 64, 36)
+    rec_n = bhx_torch.pipeline.trace_image_record_rows(without, cfg, 64, 36)
+    assert float((rec_m - rec_n)[:3].abs().max()) > 0.05
+
+
+def test_mesh_invisible_when_visibility_false():
+    """tests/test_tracer.py:118 for the port: ``visible=False`` hides it."""
+    with_cube, without = _cube_scenes(False)
+    cfg = torch_cfg(FAST_CFG)
+    rec_m = bhx_torch.pipeline.trace_image_record_rows(with_cube, cfg, 64, 36)
+    rec_n = bhx_torch.pipeline.trace_image_record_rows(without, cfg, 64, 36)
+    torch.testing.assert_close(rec_m, rec_n, atol=1e-6, rtol=0)
+
+
+_TOGGLES = {
+    "euler_sky": None,  # the golden of BASELINE config 1
+    "texture_off": dict(show_disk_texture=False),
+    "redshift_off": dict(show_redshift=False),
+    "texture_and_redshift_off": dict(show_disk_texture=False, show_redshift=False),
+    "sky_off": dict(show_sky=False),
+    # The mesh scene: with no disk the transmission is 1 and the mesh color
+    # goes in unweighted; with meshes off the straight phases skip them.
+    "meshes_disk_off": dict(show_disk=False),
+    "meshes_off": dict(render_meshes=False),
+}
+
+
+@pytest.mark.parametrize("name", list(_TOGGLES))
+def test_toggles_match_bhx(name, mesh_scenes):
+    """Each feature toggle at 64x36 (dense, no post) against bhx's fast
+    render of the same scene and config, at the 2% bad-pixel gate; the
+    mesh cases on the mesh scene, ``euler_sky`` against its golden."""
+    if name == "euler_sky":
+        scene, cfg = golden_cases()[name]
+        want = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))["img"]
+        tscene = bhx_torch.scene_from_state(scene_to_state(scene), "cpu")
+    else:
+        cfg = dataclasses.replace(FAST_CFG, **_TOGGLES[name])
+        scene, tscene = (mesh_scenes if name.startswith("meshes")
+                         else (small_scene(), _torch_scene()))
+        want = render_jit(scene, cfg)
+    got = bhx_torch.render(tscene, torch_cfg(cfg)).numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    bad = _bad_frac(got, want)
+    assert bad <= 0.02, f"{bad:.2%} pixels differ by more than 2e-2"

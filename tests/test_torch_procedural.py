@@ -177,9 +177,11 @@ def test_scene_default_cpu_matches_bhx():
 
 
 def test_scene_with_meshes_raises():
+    """Meshes are ported; a mesh state without its other fields is refused,
+    naming them."""
     state = scene_to_state(small_scene())
     state["meshes"] = ({"points": np.zeros((3, 3), np.float32)},)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="normals"):
         bhx_torch.scene_from_state(state, "cpu")
 
 
