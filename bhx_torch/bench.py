@@ -143,10 +143,9 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
                 idle_frac=1.0 - device_ms / frame_ms,
                 device_events=len(kernels) / iters,
                 # Kernel names: march_*, shade_composite_kernel,
-                # sky_kernel, mesh_bvh_kernel / mesh_brute_kernel.
+                # sky_kernel, mesh_queue_kernel and mesh_kernel.
                 march_ms=busy_ms("march"), composite_ms=busy_ms("shade_composite"),
-                sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"),
-                mesh_bvh_ms=busy_ms("mesh_bvh"), mesh_brute_ms=busy_ms("mesh_brute"))
+                sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"))
 
 
 def grad_check(width: int = 320, height: int = 180, rel_tol: float = 0.1) -> Dict:

@@ -10,9 +10,11 @@ Tolerances:
 * sky on rows and on an interleaved record: 99.5% quantile of |err| <
   2e-3 and max < 0.2 (a star splat's edge moves with the last bit of the
   escape direction);
-* the mesh kernel M1, in both branches: bit-identical, ``max_abs_err ==
-  0.0`` in t, hit, color and normal (it repeats the plain traversal's
-  triangle and box tests operation for operation);
+* the mesh kernel M1, one launch for all meshes with the merge inside, or
+  one mesh without it, BVH and brute force: bit-identical,
+  ``max_abs_err == 0.0`` in t, hit, color and normal (it repeats the plain
+  traversal's triangle and box tests and the merge operation for
+  operation);
 * the render's gradient on the card against the CPU's
   (:func:`compare_gradients`): every parameter within 1e-3 of its
   largest entry.
@@ -30,8 +32,9 @@ thread per lane in pixel order, and its serial floor.
 :func:`composite_work` counts the composite's work from its slots alone:
 the valid slots, the rays that have one, and the SIMT efficiency of
 shading them one thread per ray against packed per block.
-:func:`mesh_work` counts M1's node visits and triangle tests per ray from
-the plain lockstep run, and :func:`mesh_bound` bounds it.
+:func:`meshes_work` counts an M1 launch's node visits and triangle tests
+per ray, mesh by mesh, from the plain lockstep run, and
+:func:`mesh_bound` bounds the launch.
 """
 
 from __future__ import annotations
@@ -385,19 +388,30 @@ def last_level_rays(scene: Scene, cfg: RenderConfig):
 
 
 # Float operations of M1 (csrc/mesh.cu), counted by hand as the march's
-# are: a ray's guarded inverse direction 6 (3 abs, 3 divisions) and its
-# root box 28 (6 adds of the position, 6 subtracts, 6 multiplies, 6 min
-# and max, 4 to reduce them), in the BVH branch alone; an inner node's
-# visit two boxes and a min and a max, 58; a triangle test 102 (edges 6,
-# cross product 9, its length and inverse 8, the scale 3, the ray's dot 5,
-# three differences 9, four determinants at 14, 2 abs, 3 divisions, u + v)
-# with 5 on the special-function unit (a square root, 4 divisions).  Left
-# out: a winning hit's color and normal (~26), and the offset of the
-# vertices by the mesh position (9 adds a triangle, which need not be
-# repeated a test).
-MESH_RAY_OPS, MESH_RAY_MUFU = 34, 3
+# are: a live ray's guarded inverse direction 6 (3 abs, 3 divisions), once a
+# ray when a BVH mesh is tested; the root box of each BVH mesh 28 (6 adds
+# of the position, 6 subtracts, 6 multiplies, 6 min and max, 4 to reduce
+# them); an inner node's visit two boxes and a min and a max, 58; a
+# triangle's setup, once for each triangle the launch reads (its edges 6,
+# cross product 9, length and inverse 8, the scale 3, a - b and a - c 6):
+# 32, with a square root and a division.  A triangle test's ray-dependent
+# part, 70 in all, is counted as far as the test gets, for it leaves at the
+# first condition of a hit that fails (traverse.EXIT_KEYS): the
+# determinant and its abs, 15, on every test; a - o and u's determinant,
+# 17, past |det|; v's determinant, 14, past u's sign; t's, 14, past v's;
+# the ray's dot with the normal 5, its abs, 3 divisions and u + v, 10 with
+# 3 divisions, past t's sign.  Comparisons are not counted.  Divisions and
+# square roots also count on the special-function unit.  Left out: the
+# winning hit's color, normal and diffuse factor (~35 a hit), and the
+# offset of the vertices by the mesh position (9 adds a triangle read).
+MESH_INV_OPS, MESH_INV_MUFU = 6, 3
+MESH_ROOT_OPS = 28
 MESH_INNER_OPS = 58
-MESH_TRI_OPS, MESH_TRI_MUFU = 102, 5
+MESH_TRI_SETUP_OPS, MESH_TRI_SETUP_MUFU = 32, 2
+# Per test: on every test, then past each early exit in turn.
+MESH_TEST_EXIT_OPS = (15, 17, 14, 14, 10)
+MESH_TRI_TEST_OPS = sum(MESH_TEST_EXIT_OPS)
+MESH_TRI_TEST_MUFU = 3
 
 
 def _row_bytes(a: torch.Tensor) -> int:
@@ -432,58 +446,121 @@ def _mesh_bytes_read(mesh: Mesh, work: Dict) -> int:
             + points * _row_bytes(mesh.points) + normals * _row_bytes(mesh.normals))
 
 
-def mesh_work(origins, dirs, mesh: Mesh, active=None) -> Dict:
-    """M1's work on these rays, counted from the plain lockstep run
-    (``traverse.intersect_mesh_torch``): ``live`` lanes, inner-node and
-    leaf visits and triangle tests, their sums, means over the live lanes
-    and largest; ``mesh_bytes``, the bytes of the mesh the run reads
-    (:func:`_mesh_bytes_read`); ``simt_eff``, the SIMT efficiency of one
-    thread per ray in pixel order (visits over 32 x the sum over
-    consecutive 32-lane warps of the warp's most visits; triangle tests for
-    a brute-force mesh)."""
+def _simt_eff(per_lane: torch.Tensor):
+    """SIMT efficiency of one thread per lane in 32-lane warps, in order:
+    the work over 32 x the sum of each warp's most."""
+    n = per_lane.numel()
+    warp_max = torch.nn.functional.pad(per_lane, (0, (-n) % 32)).reshape(-1, 32).amax(1)
+    issued = 32.0 * float(warp_max.sum())
+    return float(per_lane.sum()) / issued if issued else None
+
+
+def _mesh_work(origins, dirs, mesh: Mesh, active=None) -> Tuple[Dict, torch.Tensor]:
+    """M1's work on these rays against one mesh, counted from the plain
+    lockstep run (``traverse.intersect_mesh_torch``), and each lane's
+    steps (its node visits through a BVH, its triangle tests in brute
+    force).  The dict: ``live`` lanes, inner-node and leaf visits and
+    triangle tests, their sums, means over the live lanes and largest;
+    ``mesh_bytes``, the bytes of the mesh the run reads
+    (:func:`_mesh_bytes_read`); the tests that pass each early exit
+    (``traverse.EXIT_KEYS``); ``tris_read``, the triangles it tests at
+    least once; ``simt_eff``, the SIMT efficiency of one thread per ray in
+    pixel order (steps over 32 x the sum over consecutive 32-lane warps of
+    the warp's most steps)."""
     work = {}
     traverse.intersect_mesh_torch(origins, dirs, mesh, active, work=work)
     n, live = origins.shape[0], int(work["live"].sum())
     brute = mesh.num_triangles <= mesh_mod.BRUTE_FORCE_THRESHOLD
     per_lane = work["tri_tests"] if brute else work["inner_visits"] + work["leaf_visits"]
-    warp_max = torch.nn.functional.pad(per_lane, (0, (-n) % 32)).reshape(-1, 32).amax(1)
-    issued = 32.0 * float(warp_max.sum())
+    tris_read = ((mesh.num_triangles if live else 0) if brute
+                 else int(work["lookup_read"].sum()))
     r = dict(n=n, live=live, masked=active is not None, brute=brute,
              triangles=mesh.num_triangles, mesh_bytes=_mesh_bytes_read(mesh, work),
-             simt_eff=float(per_lane.sum()) / issued if issued else None)
+             tris_read=tris_read, simt_eff=_simt_eff(per_lane),
+             **{k: int(work[k].sum()) for k in traverse.EXIT_KEYS})
     for k in ("inner_visits", "leaf_visits", "tri_tests"):
         total = int(work[k].sum())
         r[k] = total
         r[k + "_mean"] = total / live if live else 0.0
         r[k + "_max"] = int(work[k].max()) if n else 0
+    return r, per_lane
+
+
+def meshes_work(origins, dirs, meshes, active=None) -> Dict:
+    """The work of one launch of M1 for ``meshes``: each visible mesh's
+    (:func:`_mesh_work`; hidden ones are skipped) under ``meshes``, their
+    sums, ``bvh_meshes``, and the SIMT efficiency of each lane's steps over
+    all the meshes (node visits through a BVH, triangle tests in brute
+    force) one thread per lane in pixel order (``simt_eff``) and with the
+    live lanes packed 32 to a warp in pixel order (``packed_simt_eff``,
+    what the queue gives before any refill)."""
+    n = origins.shape[0]
+    live = (torch.ones(n, dtype=torch.bool, device=origins.device) if active is None
+            else active)
+    per_mesh, steps = [], torch.zeros(n, dtype=torch.int64, device=origins.device)
+    for mesh in meshes:
+        if bool(mesh.visible):
+            w, per_lane = _mesh_work(origins, dirs, mesh, active)
+            per_mesh.append(w)
+            steps += per_lane
+    r = dict(n=n, live=int(live.sum()), masked=active is not None, meshes=per_mesh,
+             bvh_meshes=sum(not w["brute"] for w in per_mesh),
+             simt_eff=_simt_eff(steps), packed_simt_eff=_simt_eff(steps[live]))
+    for k in ("inner_visits", "leaf_visits", "tri_tests", "tris_read", "mesh_bytes",
+              *traverse.EXIT_KEYS):
+        r[k] = sum(w[k] for w in per_mesh)
     return r
 
 
 def mesh_bound(work: Dict) -> Dict:
-    """M1's bound from :func:`mesh_work`'s counts: its float operations
-    (the live rays' inverse direction and root box through the BVH, the
-    inner visits', the triangle tests') and its bytes: the live rays' two
-    float32 triples and the (N,) active mask read, the (8, N) hits written
-    once, and the mesh's ``mesh_bytes``."""
+    """One M1 launch's bound from :func:`meshes_work`'s counts: its float
+    operations (the live rays' inverse direction and each BVH mesh's root
+    box, the inner visits', each triangle read's setup once and every
+    test's ray-dependent part as far as the test gets) and its bytes: the
+    live rays' two float32 triples read once, the (N,) active mask, the
+    (8, N) merged hits written once, and the meshes' ``mesh_bytes``."""
     n, live = work["n"], work["live"]
-    per_ray = 0 if work["brute"] else live
-    ops = (per_ray * MESH_RAY_OPS + work["inner_visits"] * MESH_INNER_OPS
-           + work["tri_tests"] * MESH_TRI_OPS)
-    mufu = per_ray * MESH_RAY_MUFU + work["tri_tests"] * MESH_TRI_MUFU
+    inverse = live if work["bvh_meshes"] else 0
+    reached = (work["tri_tests"], *(work[k] for k in traverse.EXIT_KEYS))
+    ops = (inverse * MESH_INV_OPS + live * work["bvh_meshes"] * MESH_ROOT_OPS
+           + work["inner_visits"] * MESH_INNER_OPS + work["tris_read"] * MESH_TRI_SETUP_OPS
+           + sum(c * k for c, k in zip(reached, MESH_TEST_EXIT_OPS)))
+    mufu = (inverse * MESH_INV_MUFU + work["tris_read"] * MESH_TRI_SETUP_MUFU
+            + work[traverse.EXIT_KEYS[-1]] * MESH_TRI_TEST_MUFU)
     nbytes = (24.0 * live + (1.0 * n if work["masked"] else 0.0)
               + 4.0 * mesh_mod.OUT_ROWS * n + work["mesh_bytes"])
     return bound(float(ops), nbytes, float(mufu))
 
 
-def compare_mesh(origins, dirs, mesh: Mesh, active=None, reps: int = 1) -> Dict:
-    """M1 against the plain traversal on the card (bit-identical in t, hit,
-    color and normal), with the launch's work (:func:`mesh_work`) and bound
-    (:func:`mesh_bound`)."""
-    got, ms = _timed(lambda: mesh_mod.intersect_mesh_cuda(origins, dirs, mesh, active), reps)
-    want, plain_ms = _timed(lambda: traverse.intersect_mesh_torch(origins, dirs, mesh, active))
+def _mesh_errors(got: Dict, want: Dict) -> Dict:
     errs = {k: _max_abs_err(got[k].float(), want[k].float()) for k in want}
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
-    work = mesh_work(origins, dirs, mesh, active)
-    return dict(work, **mesh_bound(work), err=errs, max_abs_err=max(errs.values()),
-                hits=int(got["hit"].sum()), ms=ms, plain_ms=plain_ms,
+    return dict(err=errs, max_abs_err=max(errs.values()), hits=int(got["hit"].sum()),
                 ok=finite and max(errs.values()) == 0.0)
+
+
+def compare_mesh(origins, dirs, mesh: Mesh, active=None, reps: int = 1) -> Dict:
+    """M1 on one visible mesh without the merge (``intersect_mesh``)
+    against the plain traversal on the card (bit-identical in t, hit, color
+    and normal), with the launch's work and bound (:func:`meshes_work`,
+    :func:`mesh_bound`)."""
+    got, ms = _timed(lambda: mesh_mod.intersect_mesh_cuda(origins, dirs, mesh, active), reps)
+    want, plain_ms = _timed(lambda: traverse.intersect_mesh_torch(origins, dirs, mesh, active))
+    work = meshes_work(origins, dirs, [mesh], active)
+    return dict(work, **mesh_bound(work), **_mesh_errors(got, want), ms=ms,
+                plain_ms=plain_ms)
+
+
+def compare_meshes(origins, dirs, meshes, active=None, reps: int = 1) -> Dict:
+    """M1's one launch for all ``meshes``, with the merge inside, against
+    the plain traversals and merge (``traverse.intersect_meshes_torch``) on
+    the card: bit-identical in t, hit, color and normal, with the launch's
+    work (:func:`meshes_work`) and bound (:func:`mesh_bound`).  The rays go
+    in as the columns of ``origins`` and ``dirs``, as rows of stride 3."""
+    rows = origins.unbind(1), dirs.unbind(1)
+    got, ms = _timed(lambda: mesh_mod.intersect_meshes_cuda(*rows, meshes, active), reps)
+    want, plain_ms = _timed(
+        lambda: traverse.intersect_meshes_torch(origins, dirs, meshes, active))
+    work = meshes_work(origins, dirs, meshes, active)
+    return dict(work, **mesh_bound(work), **_mesh_errors(got, want), ms=ms,
+                plain_ms=plain_ms)

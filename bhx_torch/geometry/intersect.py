@@ -10,6 +10,8 @@ operation for operation.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Sentinel distance for "no intersection"; the reference's t_min and t_max
@@ -75,7 +77,16 @@ def hit_aabb(origin, inv_direction, box_min, box_max):
     return torch.where(miss, MISS_T, t_near)
 
 
-def _det3(ax, ay, az, bx, by, bz, cx, cy, cz):
+@functools.lru_cache(maxsize=None)
+def diffuse_light(device: torch.device) -> torch.Tensor:
+    """The mesh light normalize(0.2, 0.2, -1) (ray.wgsl:384-386) on
+    ``device``, normalised by torch's ops there once: the plain merge and
+    the mesh kernel read the same bits.  Shared: never write to it."""
+    light = torch.tensor((0.2, 0.2, -1.0), dtype=torch.float32, device=device)
+    return light / torch.linalg.norm(light)
+
+
+def det3(ax, ay, az, bx, by, bz, cx, cy, cz):
     """a . (b x c), summed x + y + z."""
     return (ax * (by * cz - bz * cy) + ay * (bz * cx - bx * cz)) + az * (bx * cy - by * cx)
 
@@ -112,11 +123,11 @@ def hit_triangles(origin, direction, p1, p2, p3, n1, n2, n3, t_min=T_MIN, t_max=
     mbx, mby, mbz = ax - bx, ay - by, az - bz
     mcx, mcy, mcz = ax - cx, ay - cy, az - cz
     mox, moy, moz = ax - ox, ay - oy, az - oz
-    denom = _det3(dx, dy, dz, mbx, mby, mbz, mcx, mcy, mcz)
+    denom = det3(dx, dy, dz, mbx, mby, mbz, mcx, mcy, mcz)
     safe = torch.where(denom.abs() < 1e-12, 1e-12, denom)
-    u = _det3(dx, dy, dz, mox, moy, moz, mcx, mcy, mcz) / safe
-    v = _det3(dx, dy, dz, mbx, mby, mbz, mox, moy, moz) / safe
-    t = _det3(mox, moy, moz, mbx, mby, mbz, mcx, mcy, mcz) / safe
+    u = det3(dx, dy, dz, mox, moy, moz, mcx, mcy, mcz) / safe
+    v = det3(dx, dy, dz, mbx, mby, mbz, mox, moy, moz) / safe
+    t = det3(mox, moy, moz, mbx, mby, mbz, mcx, mcy, mcz) / safe
 
     hit = ((ray_dot.abs() >= 1e-5) & (denom.abs() >= 1e-5) & (u >= 0.0) & (u <= 1.0)
            & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max))

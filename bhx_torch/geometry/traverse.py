@@ -1,6 +1,6 @@
 """Mesh intersection of ray batches: the plain lockstep BVH traversal and
-brute force, and the dispatch to the mesh kernel M1 (counterpart of
-``bhx/geometry/traverse.py``).
+brute force, the plain nearest-hit merge, and the dispatch to the mesh
+kernel M1 (counterpart of ``bhx/geometry/traverse.py``).
 
 Mesh tests run only along straight ray segments, outside the relativity
 sphere (ray.wgsl:541 vs :556): the tracer calls :func:`intersect_meshes`
@@ -17,10 +17,12 @@ and a strict ``t < best_t``.  They work on the lanes that are active and
 whose ray meets the root box, gathered once; the loop asks the host each
 iteration whether a lane is left.
 
-For a CPU tensor :func:`intersect_mesh` runs the plain version; for a CUDA
-tensor it launches M1 (``bhx_torch.kernels.mesh``) or raises.  Results
-carry no gradient: visibility is discontinuous, and the tracer detaches
-them, as ``bhx`` wraps them in ``stop_gradient``.
+For a CPU tensor :func:`intersect_mesh` and :func:`intersect_meshes` run
+the plain versions (:func:`intersect_mesh_torch`,
+:func:`intersect_meshes_torch`); for a CUDA tensor they launch M1
+(``bhx_torch.kernels.mesh``), which merges the meshes' hits itself, or
+raise.  Results carry no gradient: visibility is discontinuous, and the
+tracer detaches them, as ``bhx`` wraps them in ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from bhx_torch.geometry.intersect import MISS_T, hit_aabb, hit_triangles
+from bhx_torch.geometry.intersect import (MISS_T, det3, diffuse_light, hit_aabb,
+                                          hit_triangles)
 from bhx_torch.kernels import mesh as mesh_kernel
-from bhx_torch.scene import Mesh, const
+from bhx_torch.scene import Mesh
 
 # Per-lane traversal stack depth (the reference proves 19 enough for a
 # 500k-triangle midpoint BVH, ray.wgsl:293).
@@ -42,6 +45,10 @@ BRUTE_FORCE_THRESHOLD = mesh_kernel.BRUTE_FORCE_THRESHOLD
 # tested (ROADMAP C.4).
 LEAF_TESTS = 4
 _TRI_CHUNK = 128
+# Per-lane counts of triangle tests that pass each early exit of M1's test,
+# in its order (csrc/mesh.cu:test_triangle): |det|, then the signs of u, v
+# and t; a test that passes the last computes the rest of the hit.
+EXIT_KEYS = ("passed_det", "passed_u", "passed_v", "passed_t")
 
 
 def _miss(n: int, like: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -66,9 +73,11 @@ def intersect_mesh_torch(origin: torch.Tensor, direction: torch.Tensor, mesh: Me
     inactive lanes return a miss.  Returns t (N,) (MISS_T on a miss), hit
     (N,), color (N, 3), normal (N, 3).  ``work``, a dict, receives the
     per-lane counts of the run: ``live`` (active lanes), ``inner_visits``,
-    ``leaf_visits`` and ``tri_tests``, each (N,) int64; and, through the
-    BVH, what of the mesh the walk read: ``nodes_read`` (the visited nodes)
-    and ``lookup_read`` (the lookup entries tested), bool masks."""
+    ``leaf_visits``, ``tri_tests`` and, of those tests, how many pass each
+    early exit of the kernel's test (:data:`EXIT_KEYS`,
+    :func:`_exits_passed`), each (N,) int64; and, through the BVH, what of
+    the mesh the walk read: ``nodes_read`` (the visited nodes) and
+    ``lookup_read`` (the lookup entries tested), bool masks."""
     n = origin.shape[0]
     out = _miss(n, origin)
     lanes = (torch.arange(n, device=origin.device) if active is None
@@ -94,6 +103,44 @@ def intersect_mesh_torch(origin: torch.Tensor, direction: torch.Tensor, mesh: Me
     return out
 
 
+def _exits_passed(origin, direction, p1, p2, p3) -> torch.Tensor:
+    """How far M1's triangle test gets (csrc/mesh.cu:test_triangle), as
+    hit_triangles' values give it: 0 if |det| < 1e-5, 1, 2 or 3 if the
+    sign of u, v or t is then surely negative (their numerator's sign
+    differs from det's and the quotient does not round to zero), else 4:
+    the test reaches its divisions.  Broadcast as :func:`hit_triangles`."""
+    ox, oy, oz = origin.unbind(-1)
+    dx, dy, dz = direction.unbind(-1)
+    ax, ay, az = p1.unbind(-1)
+    bx, by, bz = p2.unbind(-1)
+    cx, cy, cz = p3.unbind(-1)
+    mbx, mby, mbz = ax - bx, ay - by, az - bz
+    mcx, mcy, mcz = ax - cx, ay - cy, az - cz
+    mox, moy, moz = ax - ox, ay - oy, az - oz
+    denom = det3(dx, dy, dz, mbx, mby, mbz, mcx, mcy, mcz)
+
+    def positive(num):
+        return ((num < 0.0) == (denom < 0.0)) | (num.abs() <= denom.abs() * 1e-38)
+
+    ok = denom.abs() >= 1e-5
+    passed = ok.long()
+    for num in (det3(dx, dy, dz, mox, moy, moz, mcx, mcy, mcz),
+                det3(dx, dy, dz, mbx, mby, mbz, mox, moy, moz),
+                det3(mox, moy, moz, mbx, mby, mbz, mcx, mcy, mcz)):
+        ok = ok & positive(num)
+        passed = passed + ok
+    return passed
+
+
+def _count_exits(counts, passed: torch.Tensor, tested: torch.Tensor) -> None:
+    """Adds, per lane, the ``tested`` triangle tests (a bool mask that
+    broadcasts to ``passed``, (n,) or (n, C)) that pass each early exit;
+    ``passed`` is :func:`_exits_passed`'s."""
+    for i, k in enumerate(EXIT_KEYS):
+        past = tested & (passed > i)
+        counts[k] += past.sum(1) if past.dim() > 1 else past
+
+
 def _intersect_brute(origin, direction, mesh: Mesh, counts) -> Dict[str, torch.Tensor]:
     """Chunks of triangles against every ray, (N, 1, 3) x (1, C, 3); in a
     chunk the first index of the least t wins, across chunks a strictly
@@ -102,7 +149,8 @@ def _intersect_brute(origin, direction, mesh: Mesh, counts) -> Dict[str, torch.T
     if counts is not None:
         counts.update(inner_visits=origin.new_zeros(n, dtype=torch.int64),
                       leaf_visits=origin.new_zeros(n, dtype=torch.int64),
-                      tri_tests=origin.new_full((n,), ntris, dtype=torch.int64))
+                      tri_tests=origin.new_full((n,), ntris, dtype=torch.int64),
+                      **{k: origin.new_zeros(n, dtype=torch.int64) for k in EXIT_KEYS})
     best = _miss(n, origin)
     if ntris == 0 or n == 0:
         return best
@@ -117,6 +165,8 @@ def _intersect_brute(origin, direction, mesh: Mesh, counts) -> Dict[str, torch.T
         idx = torch.arange(start, start + chunk, device=origin.device) % ntris
         tri = [x[None] for x in _triangles(mesh, world, idx)]
         t, hit, color, normal = hit_triangles(o, d, *tri)
+        if counts is not None:
+            _count_exits(counts, _exits_passed(o, d, *tri[:3]), (idx >= start)[None])
         t = torch.where(hit, t, MISS_T)
         k = torch.argmin(t, dim=1)
         tmin = t[rows, k]
@@ -156,6 +206,7 @@ def _intersect_bvh(origin, direction, mesh: Mesh, counts):
         tests = torch.zeros(n, dtype=torch.int64, device=dev)
         nodes_read = torch.zeros(nb, dtype=torch.bool, device=dev)
         lookup_read = torch.zeros(nt, dtype=torch.bool, device=dev)
+        exits = {k: torch.zeros(n, dtype=torch.int64, device=dev) for k in EXIT_KEYS}
 
     while n and bool(active.any()):
         count, left = node_count[node], node_left[node]
@@ -181,6 +232,7 @@ def _intersect_bvh(origin, direction, mesh: Mesh, counts):
             normal = torch.where(win[:, None], g, normal)
             if counts is not None:
                 tests += lane_ok
+                _count_exits(exits, _exits_passed(o, d, *tri[:3]), lane_ok)
                 lookup_read[(left + i)[lane_ok]] = True
 
         if counts is not None:
@@ -204,7 +256,7 @@ def _intersect_bvh(origin, direction, mesh: Mesh, counts):
 
     if counts is not None:
         counts.update(inner_visits=inner, leaf_visits=leaves, tri_tests=tests,
-                      nodes_read=nodes_read, lookup_read=lookup_read)
+                      nodes_read=nodes_read, lookup_read=lookup_read, **exits)
     hit = best_t < MISS_T
     return dict(t=torch.where(hit, best_t, MISS_T), hit=hit, color=color,
                 normal=normal), sub
@@ -213,22 +265,26 @@ def _intersect_bvh(origin, direction, mesh: Mesh, counts):
 def intersect_mesh(origin: torch.Tensor, direction: torch.Tensor, mesh: Mesh,
                    active: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Nearest hit of each ray against one mesh: the plain version for CPU
-    tensors, the mesh kernel M1 (one launch) for CUDA tensors.  Arguments
-    and results as :func:`intersect_mesh_torch`."""
+    tensors, the mesh kernel M1 (one launch, no merge) for CUDA tensors.
+    Arguments and results as :func:`intersect_mesh_torch`."""
     if origin.device.type == "cpu":
         return intersect_mesh_torch(origin, direction, mesh, active)
     return mesh_kernel.intersect_mesh_cuda(origin, direction, mesh, active)
 
 
-def intersect_meshes(origin: torch.Tensor, direction: torch.Tensor, meshes: Sequence[Mesh],
-                     active: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Nearest hit across ``meshes`` (hit_ray's model loop, ray.wgsl:376-390):
-    a mesh whose ``visible`` is False never hits, an earlier mesh wins a tie
-    (strict ``<``), and the winning hit's color takes the diffuse factor of
-    the light normalize(0.2, 0.2, -1) (ray.wgsl:384-386)."""
+def intersect_meshes_torch(origin: torch.Tensor, direction: torch.Tensor,
+                           meshes: Sequence[Mesh], active: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Plain nearest hit across ``meshes`` (hit_ray's model loop,
+    ray.wgsl:376-390), on any device: each mesh's own search
+    (:func:`intersect_mesh_torch`), then a mesh whose ``visible`` is False
+    never hits, an earlier mesh wins a tie (strict ``<``), and the winning
+    hit's color takes the diffuse factor of the light normalize(0.2, 0.2,
+    -1) (ray.wgsl:384-386).  Arguments and results as
+    :func:`intersect_mesh_torch`."""
     best = _miss(origin.shape[0], origin)
     for mesh in meshes:
-        res = intersect_mesh(origin, direction, mesh, active)
+        res = intersect_mesh_torch(origin, direction, mesh, active)
         closer = res["hit"] & mesh.visible & (res["t"] < best["t"])
         best = dict(
             t=torch.where(closer, res["t"], best["t"]),
@@ -236,10 +292,26 @@ def intersect_meshes(origin: torch.Tensor, direction: torch.Tensor, meshes: Sequ
             color=torch.where(closer[:, None], res["color"], best["color"]),
             normal=torch.where(closer[:, None], res["normal"], best["normal"]),
         )
-    light = const((0.2, 0.2, -1.0), origin.device)
-    light = light / torch.linalg.norm(light)
+    light = diffuse_light(origin.device)
     n = best["normal"]
     diffuse = (n[:, 0] * light[0] + n[:, 1] * light[1]) + n[:, 2] * light[2]
     best["color"] = torch.where(best["hit"][:, None], best["color"] * diffuse[:, None],
                                 best["color"])
     return best
+
+
+Rays = Sequence[torch.Tensor]
+
+
+def intersect_meshes(origin: Rays, direction: Rays, meshes: Sequence[Mesh],
+                     active: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Nearest hit across ``meshes``, by the rules of
+    :func:`intersect_meshes_torch`: the plain version for CPU tensors, one
+    launch of the mesh kernel M1 for all the meshes (a further launch for
+    each MAX_MESHES more) for CUDA tensors, with no host sync.  ``origin``
+    and ``direction``: each its three (N,) rows (the tracer's state rows,
+    read in place on the card)."""
+    if origin[0].device.type == "cpu":
+        return intersect_meshes_torch(torch.stack(tuple(origin), -1),
+                                      torch.stack(tuple(direction), -1), meshes, active)
+    return mesh_kernel.intersect_meshes_cuda(origin, direction, meshes, active)

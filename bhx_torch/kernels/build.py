@@ -54,10 +54,11 @@ SIGNATURES = {
     "bhx_sky": (_P, _P, _P, _I64, _I32),
     # record (N, 8), tint, out (N, 3), n, show_sky
     "bhx_sky_finalize": (_P, _P, _P, _I64, _I32),
-    # origin (N, 3), direction (N, 3), active (N,) bool or NULL, the mesh's
-    # points, normals, tri_points, tri_normals, node_min, node_max,
-    # node_left, node_count, lookup, position; out (8, N), n, num_tris, brute
-    "bhx_mesh": (_P,) * 14 + (_I64, _I32, _I32),
+    # rays (12 int64: six row pointers, six strides), active (N,) bool or
+    # NULL, queue (N int32 of scratch), counters (1 int32, zero), launch,
+    # meshes (10 int64 a mesh), count, light (3 float32), out (8, N), n,
+    # flags (1 merge, 2 last)
+    "bhx_mesh": (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _I64, _I32),
 }
 
 

@@ -1,5 +1,6 @@
-"""Measure the march kernel, or the composite and ingredients kernels, at
-the default frame's shapes on one CUDA card.
+"""Measure the march kernel, the composite and ingredients kernels, or the
+mesh kernel M1, at the default frame's shapes (the mesh frame's for M1)
+on one CUDA card.
 
 ``--study march`` (the default): for each branch (Euler, RK45, Kerr spin
 0.9) and each of the last ladder level's two march launches (round 0 and
@@ -22,7 +23,23 @@ streaming floor: loads and stores alone) and on the rays with a valid
 slot alone (the shading, with little stream); after the Euler 640x361 line,
 one for the ingredients on its slots, with their bound and times.
 
-Every kernel's output is held against the first one's (the march) or the
+``--study mesh``: the mesh frame (PERF.md section 4: the cube and the
+524,288-triangle torus seen from z = -40, 1918x1081 ladder) by the
+``bhx_torch`` of each tree root given in ``--frames``, in turns a, b, ...,
+b, a, each in a process of its own: the frame's 12 mesh calls (4 ladder
+levels x 3 straight phases) recorded from one render and each timed with
+the rays as that tree's tracer hands them over (CUDA events, 10 calls
+after a warm-up), the M1 launches of one call, device ms
+by kernel over the 12 calls (the rest is glue) and their device events
+(``torch.profiler``), and ``bench.frame_profile`` of the frame with and
+without the meshes; every call's output held against the first root's bit
+for bit; then the work and bound of the last level's three calls
+(``checks.meshes_work``, ``checks.mesh_bound``).  Against PR 6's tree:
+
+    mkdir -p build/parent && git archive 07ddcdf bhx_torch tests | tar -x -C build/parent
+    python -m bhx_torch.march_study --study mesh --frames build/parent,.
+
+Every march or shade kernel's output is held against the first one's (the march) or the
 plain version's (the shade kernels) bit for bit.  The kernels: ``new``,
 the package's ``csrc/``; ``old``, another ``march.cu`` with the first
 port's entry point (no scratch pointers) or another ``shade.cu``, given
@@ -373,10 +390,158 @@ def frames(roots, iters: int = 3):
     return rows
 
 
+# Run in a process of its own by :func:`mesh_study`, with a tree root's
+# bhx_torch first on the path; uses only what every version of the package
+# since meshes has.  Arguments: the torus's OBJ file, a file for the
+# recorded calls and their outputs, calls a timing.  Prints one JSON
+# object.
+_MESH_SCRIPT = r"""
+import dataclasses, json, os, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+import bhx_torch.tracer as tracer
+from bhx_torch import checks
+from bhx_torch.bench import frame_profile
+from bhx_torch.config import RenderConfig
+from bhx_torch.geometry import obj, traverse
+from bhx_torch.kernels import launch_counts, reset_launch_counts
+from bhx_torch.pipeline import render
+from bhx_torch.scene import Camera, Scene
+
+sys.path.insert(0, "tests")
+from torch_mesh_data import cube_arrays
+
+obj_path, record_path, reps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+dev = torch.device("cuda")
+cube = obj.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube", scale=1.0,
+                     flip_y=False)
+torus = obj.make_mesh(obj_path, position=(-6.0, 0.0, -27.0), name="torus")
+scene = dataclasses.replace(
+    Scene.default(dev), meshes=(cube, torus),
+    camera=Camera(position=torch.tensor([0.0, 0.0, -40.0], device=dev),
+                  forward=torch.tensor([0.0, 0.0, 1.0], device=dev),
+                  fov=torch.tensor(1.0, device=dev)))
+cfg = RenderConfig()
+
+# The frame's own mesh calls: (origin, direction, active) of each, (N, 3)
+# whatever the tracer hands over; and the rays as this tree's tracer hands
+# them (three rows each, or (N, 3)), which each call is replayed with.
+calls, given, original = [], [], tracer.intersect_meshes
+
+
+def copy(x):
+    return x.clone() if torch.is_tensor(x) else tuple(r.clone() for r in x)
+
+
+def record(origin, direction, meshes, active=None):
+    rays = [x if torch.is_tensor(x) else torch.stack(tuple(x), -1)
+            for x in (origin, direction)]
+    calls.append([r.clone() for r in rays] + [active.clone()])
+    given.append((copy(origin), copy(direction)))
+    return original(origin, direction, meshes, active)
+
+
+tracer.intersect_meshes = record
+with torch.no_grad():
+    render(scene, cfg)
+tracer.intersect_meshes = original
+torch.cuda.synchronize()
+
+
+def run(k):
+    return traverse.intersect_meshes(*given[k], scene.meshes, calls[k][2])
+
+
+outs, ms = [], []
+for k in range(len(calls)):
+    got, t = checks._timed(lambda k=k: run(k), reps)
+    outs.append({key: v.cpu() for key, v in got.items()})
+    ms.append(t)
+reset_launch_counts()
+run(len(calls) - 3)
+torch.cuda.synchronize()
+launches = launch_counts()["mesh"]
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for k in range(len(calls)):
+        run(k)
+    torch.cuda.synchronize()
+kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+by_kernel = {}
+for e in kernels:
+    name = e.name.split("(")[0].split("::")[-1]
+    if "mesh" not in e.name:
+        name = "glue"
+    by_kernel[name] = by_kernel.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+torch.save(dict(calls=[[t.cpu() for t in c] for c in calls], outs=outs), record_path)
+frames = {name: frame_profile(scene, c) for name, c in
+          (("meshes", cfg), ("meshes off", cfg.replace(render_meshes=False)))}
+print(json.dumps(dict(
+    n=[int(c[0].shape[0]) for c in calls], active=[int(c[2].sum()) for c in calls],
+    call_ms=ms, launches_a_call=launches, calls_device_events=len(kernels),
+    calls_device_ms_by_kernel=by_kernel, frames=frames)))
+"""
+
+
+def _mesh_data():
+    """The tests' numpy mesh generator (``tests/torch_mesh_data.py``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_mesh_data
+
+    return torch_mesh_data
+
+
+def mesh_study(roots, reps: int = 10):
+    """The mesh frame's M1 calls (its 12 straight phases: 4 ladder levels x
+    3) and the mesh frame itself, by the package of each tree root in
+    ``roots``, in turns a, b, ..., b, a, each in a process of its own (see
+    the module docstring).  Every call's output is held against the first
+    root's, bit for bit; the work of the last level's calls is counted here
+    by ``checks.meshes_work``.  Returns the rows."""
+    import tempfile
+
+    from bhx_torch.geometry import obj
+
+    turns: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj_path = os.path.join(tmp, "torus.obj")
+        data = _mesh_data()
+        data.write_obj(obj_path, *data.torus_arrays(512, 512))
+        for t, root in enumerate(list(roots) + list(reversed(roots))):
+            path = str(Path(root).resolve())
+            record = os.path.join(tmp, f"record_{t}.pt")
+            proc = subprocess.run([sys.executable, "-c", _MESH_SCRIPT, obj_path, record,
+                                   str(reps)], cwd=path, env=dict(os.environ, PYTHONPATH=path),
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"mesh study under {root} failed:\n{proc.stderr[-4000:]}")
+            row = json.loads(proc.stdout.strip().splitlines()[-1])
+            rec = torch.load(record)
+            if not turns:
+                first_rec = rec
+            row["max_abs_err"] = max(
+                checks._max_abs_err(got[k].float(), want[k].float())
+                for got, want in zip(rec["outs"], first_rec["outs"]) for k in want)
+            turns.setdefault(root, []).append(row)
+            print(json.dumps(dict(mesh_turn=t, root=root, **row)), flush=True)
+        meshes = (obj.make_mesh(data.cube_arrays(), position=(6.0, 0.0, -30.0),
+                                name="cube", scale=1.0, flip_y=False),
+                  obj.make_mesh(obj_path, position=(-6.0, 0.0, -27.0), name="torus"))
+    # The work of the last level's three calls (the frame's largest).
+    work = []
+    for k in range(len(first_rec["calls"]) - 3, len(first_rec["calls"])):
+        o, d, act = (x.cuda() for x in first_rec["calls"][k])
+        w = checks.meshes_work(o, d, meshes, act)
+        w.update(checks.mesh_bound(w), call=k)
+        work.append(w)
+        print(json.dumps(dict(mesh_work=w)), flush=True)
+    return dict(turns=turns, work=work)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--study", choices=("march", "shade"), default="march",
-                    help="the march kernel, or the composite and ingredients kernels")
+    ap.add_argument("--study", choices=("march", "shade", "mesh"), default="march",
+                    help="the march kernel, the composite and ingredients kernels, or "
+                         "the mesh kernel M1 by tree (--frames)")
     ap.add_argument("--old", help="a march.cu with the first port's entry point, or a "
                                   "shade.cu (with --study shade)")
     ap.add_argument("--kernels", default="new", help="comma-separated: new, old")
@@ -392,9 +557,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    run = study if args.study == "march" else shade_study
-    rows = run(args.kernels.split(","), args.old, profile=args.profile)
-    frame_rows = frames(args.frames.split(",")) if args.frames else {}
+    if args.study == "mesh":
+        if not args.frames:
+            ap.error("--study mesh takes the tree roots to compare in --frames")
+        rows, frame_rows = mesh_study(args.frames.split(",")), {}
+    else:
+        run = study if args.study == "march" else shade_study
+        rows = run(args.kernels.split(","), args.old, profile=args.profile)
+        frame_rows = frames(args.frames.split(",")) if args.frames else {}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(card=smi.stdout.strip(), rows=rows,

@@ -152,9 +152,7 @@ def _straight_phase(state: Dict, scene: Scene, cfg: RenderConfig) -> Dict:
     if cfg.render_meshes and scene.meshes:
         # Mesh hits carry no gradient (bhx wraps them in stop_gradient).
         with torch.no_grad():
-            mesh = intersect_meshes(torch.stack([px, py, pz], dim=-1),
-                                    torch.stack([dx, dy, dz], dim=-1), scene.meshes,
-                                    active=mask)
+            mesh = intersect_meshes((px, py, pz), (dx, dy, dz), scene.meshes, active=mask)
         mesh_hit = mesh["hit"]
         enters = mask & (inside | ((v1 | v2) & (sphere_t < mesh["t"])))
         mesh_wins = mask & ~enters & mesh_hit

@@ -65,12 +65,14 @@ Phases, each printed as it finishes:
    kernel M1) and a 524,288-triangle torus generated from seed 0, written
    to an OBJ file and loaded through ``make_mesh`` (the C++ parser and BVH
    builder at full size; BVH branch), outside the relativity sphere, seen
-   by a camera at (0, 0, -40): ``make_mesh``'s seconds; M1 against the
-   plain lockstep traversal at the frame's own shapes (the last ladder
-   level's first straight phase, against each mesh; bit-identical, with
-   its work and bound); the 1918x1081 frame through ``run_bench`` as in
-   phase 4, with ``mesh`` launched 24 times a frame (4 traces x 3
-   straight phases x 2 meshes); at least 5% of the frame's pixels changed
+   by a camera at (0, 0, -40): ``make_mesh``'s seconds; M1's one launch
+   for all meshes, the merge inside, against the plain lockstep
+   traversals and merge at the frame's own shapes (the last ladder level's
+   first straight phase: the torus alone, the cube alone, and both;
+   bit-identical, with its work, bound and the torus's packed layout
+   bytes); the 1918x1081 frame through ``run_bench`` as in phase 4, with
+   ``mesh`` launched 12 times a frame (4 traces x 3 straight phases, one
+   launch for both meshes); at least 5% of the frame's pixels changed
    by the meshes; the frame's device time by kernel (``torch.profiler``)
    with the meshes and without them; and a dense 192x108 frame of the
    scene on the card against the plain path on the CPU (gated at 2%).
@@ -124,6 +126,7 @@ def main() -> int:
     from bhx_torch.bench import frame_profile, grad_check, run_bench
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
     from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
+    from bhx_torch.kernels import mesh as mesh_mod
     from bhx_torch.kernels import shade, sky
     from bhx_torch.geometry import bvh, obj
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
@@ -385,16 +388,23 @@ def main() -> int:
         camera=Camera(position=torch.tensor([0.0, 0.0, -40.0], device=dev),
                       forward=torch.tensor([0.0, 0.0, 1.0], device=dev),
                       fov=torch.tensor(1.0, device=dev)))
+    # M1's one launch for all the meshes, the merge inside, against the
+    # plain traversals and merge at the frame's largest mesh call: the torus
+    # alone (BVH), the cube alone (brute force), and both, as the frame has
+    # them.
     mesh_r = {}
     o, d, act = checks.last_level_rays(mesh_scene, cfg)
-    for name, m in (("torus", torus), ("cube", cube)):
-        r = checks.compare_mesh(o, d, m, act, reps=10)
+    for name, ms in (("torus", [torus]), ("cube", [cube]), ("both", [cube, torus])):
+        r = checks.compare_meshes(o, d, ms, act, reps=10)
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        if name == "torus":
+            r["packed_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in mesh_mod.packed(torus))
         check(f"mesh {name} last level", r["ok"], r)
         mesh_r[name] = r
     meshes = frame_phase("frame 1918x1081 meshes", "march", extra=("mesh",), iters=3,
                          scene=mesh_scene)
-    if meshes["launches_per_frame"]["mesh"] != 24:
+    if meshes["launches_per_frame"]["mesh"] != 12:
         check("mesh launches a frame", False, dict(meshes["launches_per_frame"]))
     with torch.no_grad():
         img = render(mesh_scene, cfg)
@@ -438,14 +448,16 @@ def main() -> int:
         entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", euler, sky_r),
         entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246", None, ing_r),
         entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723", None, skyf_r),
-        # No Pallas counterpart: M1 replaces the jnp lockstep traversal and
-        # brute force.  Its figures are the torus's (BVH branch); the cube's
-        # (brute force) ride beside them.
+        # No Pallas counterpart: M1 replaces the jnp lockstep traversal,
+        # brute force and merge.  Its figures are the frame's launch (the
+        # cube and the torus); the torus's alone (BVH branch) and the
+        # cube's alone (brute force) ride beside them.
         dict(entry("mesh", "mesh.cu",
                    "bhx/geometry/traverse.py:143 (_intersect_bvh; :98 _intersect_brute; "
-                   "jnp, no pallas_call)", meshes, mesh_r["torus"]),
-             brute={k: mesh_r["cube"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by")}),
+                   ":58 intersect_meshes; jnp, no pallas_call)", meshes, mesh_r["both"]),
+             **{branch: {k: mesh_r[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by")}
+                for branch, name in (("bvh", "torus"), ("brute", "cube"))}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

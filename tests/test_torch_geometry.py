@@ -231,17 +231,32 @@ def test_traversal_matches_bhx(meshes, which):
         assert torch.equal(masked[k][active], got[k][active]), k
 
 
-@pytest.mark.parametrize("hidden", [None, 0, 1])
+@pytest.mark.parametrize("hidden", [None, 0, 1, "tie"])
 def test_intersect_meshes_matches_bhx(meshes, hidden):
     """Both meshes at once, one of them ``visible=False`` or neither: the
-    nearest hit and its diffuse-lit color."""
+    nearest hit and its diffuse-lit color.  ``tie``: three meshes, the
+    cube, the torus hidden, and the cube again with its vertex normals
+    negated (same geometry, another color): the earlier cube wins every
+    tie, so the result is the cube's alone."""
     ms = [m if i != hidden else dataclasses.replace(m, visible=torch.tensor(False))
           for i, m in enumerate(meshes)]
+    if hidden == "tie":
+        cube, torus = meshes
+        ms = [cube, dataclasses.replace(torus, visible=torch.tensor(False)),
+              dataclasses.replace(cube, normals=-cube.normals)]
     o, d = _rays()
     want = jtrav.intersect_meshes(*_j(o, d), tuple(jax_mesh(m) for m in ms))
-    got = ttrav.intersect_meshes(*_t(o, d), ms)
+    got = ttrav.intersect_meshes_torch(*_t(o, d), ms)
     _assert_hits_match(got, want)
-    if hidden is not None:
+    rows = [x.unbind(1) for x in _t(o, d)]
+    for k, v in ttrav.intersect_meshes(*rows, ms).items():
+        assert torch.equal(v, got[k]), k
+    if hidden == "tie":
+        alone = ttrav.intersect_meshes_torch(*_t(o, d), ms[:1])
+        assert bool(alone["hit"].any())
+        for k in got:
+            assert torch.equal(got[k], alone[k]), k
+    elif hidden is not None:
         alone = ttrav.intersect_mesh(*_t(o, d), meshes[1 - hidden])
         np.testing.assert_array_equal(got["hit"].numpy(), alone["hit"].numpy())
 
@@ -268,24 +283,70 @@ def test_mesh_work_counts_what_the_run_reads(meshes, which):
                 work["inner_visits"].sum() + work["leaf_visits"].sum())
             assert int(work["lookup_read"].sum()) == int(work["tri_tests"].sum())
     active = torch.from_numpy(np.random.default_rng(3).random(len(o)) < 0.6)
-    work = checks.mesh_work(o, d, mesh, active)
+    work = checks.meshes_work(o, d, [mesh], active)
     assert work["live"] == int(active.sum()) and work["masked"]
+    assert len(work["meshes"]) == 1 and work["meshes"][0]["live"] == work["live"]
     whole = _nbytes(mesh.tri_points, mesh.tri_normals, mesh.points, mesh.normals,
                     mesh.position)
     if which == "cube":
         assert work["mesh_bytes"] == whole
+        assert work["tris_read"] == mesh.num_triangles
+        assert work["tri_tests"] == work["live"] * mesh.num_triangles
     else:
         assert 0 < work["mesh_bytes"] < whole + _nbytes(
             mesh.node_min, mesh.node_max, mesh.node_left, mesh.node_count, mesh.lookup)
+        assert 0 < work["tris_read"] <= min(work["tri_tests"], mesh.num_triangles)
+    passed = [work[k] for k in ttrav.EXIT_KEYS]
+    assert work["tri_tests"] >= passed[0] >= passed[1] >= passed[2] >= passed[3] > 0
+    assert passed[3] < work["tri_tests"]
     b = checks.mesh_bound(work)
+    # Each triangle read pays its setup once, each test its ray-dependent
+    # part as far as it gets; brute force pays no inverse direction or root
+    # box.
     ops = (work["inner_visits"] * checks.MESH_INNER_OPS
-           + work["tri_tests"] * checks.MESH_TRI_OPS
-           + (0 if which == "cube" else work["live"] * checks.MESH_RAY_OPS))
+           + work["tris_read"] * checks.MESH_TRI_SETUP_OPS
+           + work["tri_tests"] * 15 + passed[0] * 17 + passed[1] * 14 + passed[2] * 14
+           + passed[3] * 10
+           + (0 if which == "cube"
+              else work["live"] * (checks.MESH_INV_OPS + checks.MESH_ROOT_OPS)))
+    assert checks.MESH_TRI_TEST_OPS == 70
     assert b["ops_ms"] == pytest.approx(ops / checks.PEAK_F32_OPS * 1e3, rel=1e-12)
     nbytes = 24 * work["live"] + len(o) * (1 + 32) + work["mesh_bytes"]
     assert b["bytes_ms"] == pytest.approx(nbytes / checks.PEAK_BYTES_PER_S * 1e3, rel=1e-12)
-    idle = checks.mesh_work(o, d, mesh, torch.zeros(len(o), dtype=torch.bool))
-    assert idle["live"] == 0 and idle["mesh_bytes"] == 0
+    idle = checks.meshes_work(o, d, [mesh], torch.zeros(len(o), dtype=torch.bool))
+    assert idle["live"] == 0 and idle["mesh_bytes"] == 0 and idle["tris_read"] == 0
+
+
+@pytest.mark.parametrize("x, y, z, direction, want", [
+    (0.2, 0.2, -1.0, (0.0, 0.0, 1.0), 4),   # a hit
+    (0.7, 0.7, -1.0, (0.0, 0.0, 1.0), 4),   # u + v > 1: found only past the divisions
+    (-0.5, 0.2, -1.0, (0.0, 0.0, 1.0), 1),  # u < 0
+    (0.2, -0.5, -1.0, (0.0, 0.0, 1.0), 2),  # v < 0
+    (0.2, 0.2, 1.0, (0.0, 0.0, 1.0), 3),    # t < 0: the triangle is behind
+    (0.2, 0.2, -1.0, (1.0, 0.0, 0.0), 0),   # parallel: |det| < 1e-5
+])
+def test_exits_passed_follow_the_kernel_order(x, y, z, direction, want):
+    """How far M1's triangle test gets, on the triangle (0,0,0), (1,0,0),
+    (0,1,0), where u runs along x and v along y."""
+    p1, p2, p3 = (torch.tensor(v) for v in ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0)))
+    o, d = torch.tensor([x, y, z]), torch.tensor(direction)
+    assert int(ttrav._exits_passed(o, d, p1, p2, p3)) == want
+    hit = bool(tint.hit_triangles(o, d, p1, p2, p3, p1, p1, p1)[1])
+    assert hit == (want == 4 and x + y <= 1.0)
+
+
+def test_exits_passed_never_stop_a_hit():
+    """A test that leaves early is a miss: every hit of the plain test
+    passes all four exits, on random rays against random triangles."""
+    rng = np.random.default_rng(11)
+    o, d = (torch.from_numpy(rng.normal(size=(4000, 1, 3)).astype(np.float32))
+            for _ in range(2))
+    p1, p2, p3 = (torch.from_numpy(rng.normal(size=(1, 64, 3)).astype(np.float32) + 3.0)
+                  for _ in range(3))
+    passed = ttrav._exits_passed(o, d, p1, p2, p3)
+    hit = tint.hit_triangles(o, d, p1, p2, p3, p1, p2, p3)[1]
+    assert int(hit.sum()) > 100 and bool((passed[hit] == 4).all())
+    assert bool((passed < 4).any()) and bool((passed == 4).any())
 
 
 def _leaf_cap_mesh(facing: int):

@@ -1,6 +1,6 @@
 """Card-only tests: each CUDA kernel of bhx_torch against its plain torch
 version on the card (the mesh kernel M1 in both branches, with active
-masks), proof that CUDA tensors launch the kernels (with and without
+masks, and its one launch for all meshes with the merge inside), proof that CUDA tensors launch the kernels (with and without
 autograd, and with meshes in the scene), the card's frames against the
 CPU's, and the card's gradient against the CPU's.
 Every test here is marked ``gpu`` and skips without a CUDA device.
@@ -333,14 +333,124 @@ def test_mesh_kernel_leaf_cap(mesh_scene):
     assert r["ok"] and r["hits"] > 1000, r
 
 
+def _tie_cube(cube):
+    """The cube again, its vertex normals negated: same geometry, another
+    color, so a tie shows which mesh won."""
+    return dataclasses.replace(cube, normals=-cube.normals)
+
+
+def _hidden(mesh):
+    return dataclasses.replace(mesh, visible=torch.tensor(False, device="cuda"))
+
+
+def _scene_case(mesh_scene, case: str):
+    cube, torus = mesh_scene.meshes
+    return {"1": [torus], "2": [cube, torus], "3": [cube, torus, _tie_cube(cube)],
+            "hidden": [cube, _hidden(torus), _tie_cube(cube)]}[case]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
+@pytest.mark.parametrize("case", ["1", "2", "3", "hidden"])
+def test_fused_meshes_bit_identical(mesh_scene, case, masked):
+    """One launch for all the meshes, the merge inside, against the plain
+    traversals and merge: bit-identical in t, hit, color and normal."""
+    meshes = _scene_case(mesh_scene, case)
+    o, d, active = _mesh_rays()
+    before = launch_counts()["mesh"]
+    r = checks.compare_meshes(o, d, meshes, active if masked else None)
+    assert r["ok"] and r["hits"] > 1000, r
+    assert launch_counts()["mesh"] == before + 1
+    if case == "3":
+        # The tie cube never wins: the result is the cube's and the torus's.
+        got = tmesh.intersect_meshes_cuda(o.unbind(1), d.unbind(1), meshes[:2])
+        want = tmesh.intersect_meshes_cuda(o.unbind(1), d.unbind(1), meshes)
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_fused_meshes_leaf16(mesh_scene):
+    """Leaves of up to 16 triangles beside the cube, in one launch: the
+    first 4 of a leaf tested, as the plain traversal does."""
+    p, n, tri = torus_arrays(32, 32)
+    mesh = bhx_torch.make_mesh((p, n, tri, tri), position=(-6.0, 0.0, -27.0),
+                               leaf_size=16)
+    assert int(mesh.node_count.max()) > 4
+    o, d, active = _mesh_rays()
+    r = checks.compare_meshes(o, d, [mesh_scene.meshes[0], mesh], active)
+    assert r["ok"] and r["hits"] > 1000, r
+
+
+@pytest.mark.parametrize("case", ["no rays", "no live lane"])
+def test_fused_meshes_empty(mesh_scene, case):
+    o, d, active = _mesh_rays()
+    if case == "no rays":
+        o, d, active = o[:0], d[:0], active[:0]
+    else:
+        active = torch.zeros_like(active)
+    r = checks.compare_meshes(o, d, mesh_scene.meshes, active)
+    assert r["ok"] and r["hits"] == 0, r
+
+
+def test_fused_meshes_past_the_cap(mesh_scene):
+    """Ten cubes and the torus: more meshes than one launch takes, so a
+    second launch reads the merged hit of the first and writes it in place.
+    Cubes stacked in depth overlap on screen; one is hidden, and the last
+    one repeats the first (another color), so a tie spans the launches."""
+    cube, torus = mesh_scene.meshes
+    cubes = [dataclasses.replace(cube, position=torch.tensor(
+        [4.0 + 2.0 * (k % 3), 2.0 * (k // 3) - 3.0, -30.0 - 1.5 * k], device="cuda"))
+        for k in range(9)]
+    cubes[3] = _hidden(cubes[3])
+    meshes = cubes + [torus, _tie_cube(cubes[0])]
+    assert [len(g) for g in tmesh.launch_groups(meshes)] == [8, 3]
+    o, d, active = _mesh_rays()
+    before = launch_counts()["mesh"]
+    r = checks.compare_meshes(o, d, meshes, active)
+    assert r["ok"] and r["hits"] > 1000, r
+    assert launch_counts()["mesh"] == before + 2
+
+
+def test_fused_meshes_read_rows_in_place(mesh_scene):
+    """The tracer's rows as they come: contiguous, strided and broadcast
+    (stride 0, a camera's origin); the same bits as the plain merge of the
+    stacked rays."""
+    _, d, active = _mesh_rays()
+    origin = torch.tensor([0.0, 0.0, -40.0], device="cuda")
+    rows_o = (origin[0].expand(d.shape[0]), origin[1].expand(d.shape[0]),
+              origin[2].expand(d.shape[0]))
+    rows_d = (d[:, 0].contiguous(), d[:, 1], d[:, 2])
+    got = traverse.intersect_meshes(rows_o, rows_d, mesh_scene.meshes, active)
+    want = traverse.intersect_meshes_torch(torch.stack(rows_o, -1), d, mesh_scene.meshes,
+                                           active)
+    assert bool(want["hit"].any())
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_mesh_call_makes_no_host_sync(mesh_scene):
+    """After a first call (the light vector and the packing are made and
+    cached), a mesh call queues its work and never waits on the card."""
+    o, d, active = _mesh_rays()
+    rows = o.unbind(1), d.unbind(1)
+    traverse.intersect_meshes(*rows, mesh_scene.meshes, active)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = traverse.intersect_meshes(*rows, mesh_scene.meshes, active)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(got["hit"].any())
+
+
 def test_mesh_frame_launches_the_kernel(mesh_scene, monkeypatch):
     """With meshes in the scene, CUDA tensors reach M1 and never the plain
-    traversal: one launch per mesh per straight phase (3 in a dense trace),
-    and a fit through it still has a gradient."""
+    traversal or merge: one launch for both meshes per straight phase (3
+    in a dense trace), and a fit through it still has a gradient."""
     def boom(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain traversal")
 
     monkeypatch.setattr(traverse, "intersect_mesh_torch", boom)
+    monkeypatch.setattr(traverse, "intersect_meshes_torch", boom)
     mass = mesh_scene.black_hole.mass.detach().clone().requires_grad_()
     scene = dataclasses.replace(mesh_scene, black_hole=dataclasses.replace(
         mesh_scene.black_hole, mass=mass))
@@ -348,7 +458,7 @@ def test_mesh_frame_launches_the_kernel(mesh_scene, monkeypatch):
     reset_launch_counts()
     img = bhx_torch.render(scene, cfg)
     torch.cuda.synchronize()
-    assert launch_counts()["mesh"] == 3 * 2
+    assert launch_counts()["mesh"] == 3
     (g,) = torch.autograd.grad(img.sum(), mass)
     assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(g))
 
