@@ -24,12 +24,13 @@ from bhx_torch.kernels import build, launch_counts
 from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import render
 from bhx_torch.scene import Scene, with_spin
-from bhx_torch.tracer import crossing_overflow_stats
+from bhx_torch.tracer import ARRAY_COMPOSITE, ARRAY_SKY, crossing_overflow_stats
 
 
 def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
               warmup: int = 2, geodesics: str = "pseudo", spin: float = 0.0,
-              integrator: Integrator = Integrator.EULER, scene: Scene = None) -> Dict:
+              integrator: Integrator = Integrator.EULER, scene: Scene = None,
+              texture_mode: str = "procedural", dense: bool = False) -> Dict:
     """Render ``iters`` timed frames after ``warmup`` and return Mrays/s,
     ms/frame, the kernel build and first-frame seconds, the K-slot
     crossing-overflow fraction, the kernel launches of one frame, the
@@ -38,7 +39,9 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
     of the overflow diagnostic, which runs after that read), the number of
     frames rendered and the last frame itself.  The scene is ``scene``
     (on the card), or ``Scene.default`` with ``spin`` set on its black
-    hole.  Raises without a CUDA device."""
+    hole; ``texture_mode`` is the config's (array mode reads the scene's
+    textures, the default bakes where unset), and ``dense`` turns the
+    ladder off.  Raises without a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("run_bench measures on a CUDA device; none is available")
     dev = torch.device("cuda")
@@ -47,7 +50,8 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
     cfg = RenderConfig(
         width=width, height=height,
         ladder=LadderConfig.for_resolution(width, height, 4),
-        geodesics=geodesics, integrator=integrator,
+        geodesics=geodesics, integrator=integrator, texture_mode=texture_mode,
+        use_ladder=not dense,
     )
 
     t0 = time.perf_counter()
@@ -90,7 +94,8 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
     label = "schwarzschild" if geodesics == "pseudo" else f"kerr(spin={spin})"
     return {
         "label": label + ("+rk45" if integrator == Integrator.RK45 else "")
-        + (f"+{len(scene.meshes)} meshes" if scene.meshes else ""),
+        + (f"+{len(scene.meshes)} meshes" if scene.meshes else "")
+        + ("+array" if texture_mode == "array" else "") + ("+dense" if dense else ""),
         "mrays_per_s": width * height / (ms * 1e-3) / 1e6,
         "ms_per_frame": ms,
         "host_ms_per_frame": host_ms,
@@ -110,8 +115,11 @@ def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
 def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
     """One frame of ``scene`` under ``cfg`` on the card, after a warm-up:
     ms a frame by CUDA events, and by ``torch.profiler`` the device's busy
-    ms a frame (the union of kernel intervals), its idle share, and the
-    busy ms of the march, composite, sky and mesh kernels (by name)."""
+    ms a frame (the union of kernel intervals), its idle share, the busy
+    ms of the march, composite, sky and mesh kernels (by name), and the
+    device ms of the kernels launched inside the array-texture stages
+    (``tracer.ARRAY_COMPOSITE`` and ``tracer.ARRAY_SKY``, plain torch: the
+    kernels of the ops inside each host range)."""
     from torch.profiler import ProfilerActivity, profile
 
     render(scene, cfg)
@@ -123,11 +131,23 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
     end.record()
     end.synchronize()
     frame_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             render(scene, cfg)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = prof.events()
+    stages = (ARRAY_COMPOSITE, ARRAY_SKY)
+    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in stages]
+
+    def stage_ms(name: str) -> float:
+        """Device ms a frame of the kernels that the ops inside the host
+        range ``name`` launched (the range's own device span left out)."""
+        total = 0.0
+        for e in events:
+            if e.device_type.name == "CPU" and e.name == name:
+                total += sum(k.duration for k in e.kernels if k.name != name)
+                total += sum(ch.device_time_total for ch in e.cpu_children)
+        return total / iters / 1e3
 
     def busy_ms(part: str = "") -> float:
         total, reach = 0.0, float("-inf")
@@ -145,7 +165,9 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
                 # Kernel names: march_*, shade_composite_kernel,
                 # sky_kernel, mesh_queue_kernel and mesh_kernel.
                 march_ms=busy_ms("march"), composite_ms=busy_ms("shade_composite"),
-                sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"))
+                sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"),
+                array_composite_ms=stage_ms(ARRAY_COMPOSITE),
+                array_sky_ms=stage_ms(ARRAY_SKY))
 
 
 def grad_check(width: int = 320, height: int = 180, rel_tol: float = 0.1) -> Dict:

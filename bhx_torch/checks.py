@@ -54,7 +54,7 @@ from bhx_torch.kernels import shade as shade_mod
 from bhx_torch.kernels import sky as sky_mod
 from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import final_level_retrace_mask, render
-from bhx_torch.scene import Mesh, Scene
+from bhx_torch.scene import TEXTURE_FIELDS, Mesh, Scene, with_textures
 from bhx_torch.tracer import camera_rays, march_batch, march_kwargs
 
 SKY_Q995 = 2e-3
@@ -279,11 +279,11 @@ def ingredients_bound(slots, cfg: RenderConfig) -> Dict:
 
 
 def sky_bound(record, cfg: RenderConfig) -> Dict:
-    """The sky pass's bound on this record, (8, N) rows or (N, 8): every
+    """The sky pass's bound on this record, (8, ...) rows or (..., 8): every
     pixel's color and amount read and its color written; a pixel that sees
     the sky (amount > 0.001) also reads its direction and costs
     SKY_PIXEL_OPS."""
-    amount = record[4] if record.shape[0] == 8 else record[:, 4]
+    amount = record[4] if record.shape[0] == 8 else record[..., 4]
     n = amount.numel()
     sky = float((amount > 0.001).sum()) if cfg.show_sky else 0.0
     return bound(sky * SKY_PIXEL_OPS, 4.0 * (7 * n + 3 * sky))
@@ -339,9 +339,11 @@ def compare_sky_finalize(record, cfg: RenderConfig, reps: int = 1) -> Dict:
 
 def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
     """The gradient of ``sum(w * render(scene, cfg))`` with respect to every
-    ``parallel.scene_params`` entry and ``disk_gain``: on the card (the
-    kernels' forward, their replayed backward) against the plain path on
-    the CPU.  ``scene`` lies on the card.
+    ``parallel.scene_params`` entry and, in procedural texture mode,
+    ``disk_gain``, in array texture mode the three textures (the default
+    bakes where the scene has none), each of which must get one: on the
+    card (the kernels' forward, their replayed backward) against the plain
+    path on the CPU.  ``scene`` lies on the card.
 
     ``w`` is ``default_rng(seed)`` uniform, zero where the two programs'
     pointwise derivatives may part by more than rounding: pixels that are
@@ -353,6 +355,12 @@ def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
     card, and each parameter whose largest entry exceeds 1e-6 of the
     largest of all within GRAD_REL of it."""
     names = [k for k in scene_params(scene) if k != "spin" or cfg.geodesics == "kerr"]
+    # disk_gain is read by the procedural shade only, the textures by the
+    # array shade only: every leaf must get a gradient.
+    extra = ("disk_gain",)
+    if cfg.texture_mode == "array":
+        scene = with_textures(scene)
+        extra = TEXTURE_FIELDS
     cpu_scene = scene.to("cpu")
     with torch.no_grad():
         fwd_err = (render(scene, cfg).cpu() - render(cpu_scene, cfg)).abs().numpy()
@@ -361,11 +369,12 @@ def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
 
     def grads(s: Scene) -> Dict[str, torch.Tensor]:
         leaves = {k: v.detach().clone().requires_grad_() for k, v in scene_params(s).items()}
-        leaves["disk_gain"] = s.disk_gain.detach().clone().requires_grad_()
-        s = dataclasses.replace(apply_params(s, leaves), disk_gain=leaves["disk_gain"])
+        leaves.update({k: getattr(s, k).detach().clone().requires_grad_() for k in extra})
+        s = dataclasses.replace(apply_params(s, leaves), **{k: leaves[k] for k in extra})
         img = render(s, cfg)
         loss = (img * torch.as_tensor(weights, dtype=img.dtype, device=img.device)).sum()
-        return {k: g.cpu() for k, g in zip(leaves, torch.autograd.grad(loss, list(leaves.values())))}
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {k: g.cpu() for k, g in zip(leaves, grads)}
 
     on_card, on_cpu = grads(scene), grads(cpu_scene)
     largest = max(float(g.abs().max()) for g in on_cpu.values())

@@ -1,15 +1,15 @@
 """Static render configuration (counterpart of ``bhx/config.py``).
 
 Plain frozen dataclasses: they select code paths and shapes.  Scene
-quantities (camera pose, black-hole parameters, ``disk_gain``) live in
-:mod:`bhx_torch.scene` as tensors.
+quantities (camera pose, black-hole parameters, ``disk_gain``, the
+array textures) live in :mod:`bhx_torch.scene` as tensors.
 
 The port always runs the kernel path's semantics — a deferred record of
 K=4 disk-crossing slots, one march round — so the TPU tiling knobs
 (sublanes, unroll, vote interval, round steps, record guard) and the
-``march_mode`` switch have no counterpart here.  Modes that are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item; a
-``geodesics`` other than "pseudo" or "kerr" raises ``ValueError``.
+``march_mode`` switch have no counterpart here.  A ``geodesics`` other
+than "pseudo" or "kerr", or a ``texture_mode`` other than "procedural" or
+"array", raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,16 +26,60 @@ class Integrator(enum.Enum):
     RK45 = 1
 
 
+class FxaaPreset(enum.Enum):
+    """Edge-threshold presets (reference src/renderer/pipelines/fxaa_pipline.rs:25-67)."""
+
+    ULTRA = 0
+    HIGH = 1
+    MEDIUM = 2
+    LOW = 3
+    EXTREME = 4
+
+
+# Threshold tables of fxaa_pipline.rs:25-67 (EdgeThresholdMin / EdgeThreshold).
+_EDGE_THRESHOLD_MIN = {
+    FxaaPreset.ULTRA: 0.0833,
+    FxaaPreset.HIGH: 0.0625,
+    FxaaPreset.MEDIUM: 0.0312,
+    FxaaPreset.LOW: 0.0156,
+    FxaaPreset.EXTREME: 0.0078,
+}
+_EDGE_THRESHOLD_MAX = {
+    FxaaPreset.ULTRA: 0.250,
+    FxaaPreset.HIGH: 0.166,
+    FxaaPreset.MEDIUM: 0.125,
+    FxaaPreset.LOW: 0.063,
+    FxaaPreset.EXTREME: 0.031,
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class FxaaConfig:
     """FXAA 3.11 quality settings (reference fxaa.wgsl + fxaa_pipline.rs:69-92);
     the edge thresholds default to the reference's ULTRA preset."""
 
     enabled: bool = True
-    edge_threshold_min: float = 0.0833
-    edge_threshold_max: float = 0.250
+    edge_threshold_min: float = _EDGE_THRESHOLD_MIN[FxaaPreset.ULTRA]
+    edge_threshold_max: float = _EDGE_THRESHOLD_MAX[FxaaPreset.ULTRA]
     iterations: int = 12
     subpixel_quality: float = 0.75
+
+    @staticmethod
+    def from_presets(
+        min_preset: FxaaPreset = FxaaPreset.ULTRA,
+        max_preset: FxaaPreset = FxaaPreset.ULTRA,
+        iterations: int = 12,
+        subpixel_quality: float = 0.75,
+        enabled: bool = True,
+    ) -> "FxaaConfig":
+        """The config whose edge thresholds are those of the two presets."""
+        return FxaaConfig(
+            enabled=enabled,
+            edge_threshold_min=_EDGE_THRESHOLD_MIN[min_preset],
+            edge_threshold_max=_EDGE_THRESHOLD_MAX[max_preset],
+            iterations=iterations,
+            subpixel_quality=subpixel_quality,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +166,9 @@ class RenderConfig:
     show_sky: bool = True
     # Test the scene's meshes in the straight phases (bhx/config.py:174).
     render_meshes: bool = True
+    # "procedural": the disk texel, tint and sky evaluated arithmetically
+    # (the kernels).  "array": bilinear samples of the scene's baked
+    # textures, differentiable with respect to their content.
     texture_mode: str = "procedural"
 
     # Early-exit opacity threshold (reference ray.wgsl:578).
@@ -142,10 +189,10 @@ class RenderConfig:
             raise ValueError(
                 f"geodesics must be 'pseudo' or 'kerr', got {self.geodesics!r}"
             )
-        if self.texture_mode != "procedural":
-            raise NotImplementedError(
-                f"texture_mode={self.texture_mode!r} is not ported to "
-                "bhx_torch yet (array textures: ROADMAP A13)"
+        if self.texture_mode not in ("procedural", "array"):
+            raise ValueError(
+                "texture_mode must be 'procedural' or 'array', "
+                f"got {self.texture_mode!r}"
             )
 
     def ladder_for_output(self) -> LadderConfig:

@@ -39,6 +39,16 @@ for bit; then the work and bound of the last level's three calls
     mkdir -p build/parent && git archive 07ddcdf bhx_torch tests | tar -x -C build/parent
     python -m bhx_torch.march_study --study mesh --frames build/parent,.
 
+``--study array``: the 1918x1081 array-texture frame (PERF.md section 4)
+by the ``bhx_torch`` of each tree root given in ``--frames``, in turns a,
+b, ..., b, a, each in a process of its own: ``bench.run_bench``'s ms a
+frame (CUDA events) and host ms a frame, ``bench.frame_profile``'s device
+busy ms, idle share and the array composite's and sky's device ms a frame,
+and one gradient step of the dense frame (no bloom or FXAA, 400
+iterations, as ``fit_scene`` at ``bhx fit``'s defaults, with the sky) with
+respect to the three textures: its ms (CUDA events, after a warm-up step) and peak
+memory.  The frame and the gradients are held against the first root's.
+
 Every march or shade kernel's output is held against the first one's (the march) or the
 plain version's (the shade kernels) bit for bit.  The kernels: ``new``,
 the package's ``csrc/``; ``old``, another ``march.cu`` with the first
@@ -482,6 +492,82 @@ print(json.dumps(dict(
 """
 
 
+# Run in a process of its own by :func:`array_study`, with a tree root's
+# bhx_torch first on the path.  Arguments: frames a timing, a file for the
+# frame and the gradients.  Prints one JSON object.
+_ARRAY_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from bhx_torch.bench import frame_profile, run_bench
+from bhx_torch.config import BloomConfig, FxaaConfig, RenderConfig
+from bhx_torch.pipeline import render
+from bhx_torch.scene import TEXTURE_FIELDS, Scene, with_textures
+
+iters, out_path = int(sys.argv[1]), sys.argv[2]
+bench = run_bench(1918, 1081, iters=iters, texture_mode="array")
+image = bench.pop("image")
+scene = with_textures(Scene.default("cuda"))
+prof = frame_profile(scene, RenderConfig(texture_mode="array"), iters=iters)
+cfg = RenderConfig(use_ladder=False, max_iterations=400, bloom=BloomConfig(enabled=False),
+                   fxaa=FxaaConfig(enabled=False), texture_mode="array")
+
+
+def step():
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_() for k in TEXTURE_FIELDS}
+    loss = render(dataclasses.replace(scene, **leaves), cfg).square().mean()
+    return torch.autograd.grad(loss, list(leaves.values()))
+
+
+step()
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+a.record()
+grads = step()
+b.record()
+b.synchronize()
+torch.save(dict(image=image.cpu(), grads=[g.cpu() for g in grads]), out_path)
+print(json.dumps(dict(
+    ms_per_frame=bench["ms_per_frame"], host_ms_per_frame=bench["host_ms_per_frame"],
+    launches_per_frame=bench["launches_per_frame"], device_ms=prof["device_ms"],
+    idle_frac=prof["idle_frac"], device_events=prof["device_events"],
+    array_composite_ms=prof["array_composite_ms"], array_sky_ms=prof["array_sky_ms"],
+    grad_step_ms=a.elapsed_time(b),
+    grad_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)))
+"""
+
+
+def array_study(roots, iters: int = 5):
+    """The 1918x1081 array-texture frame and its texture gradient by the
+    package of each tree root in ``roots``, in turns a, b, ..., b, a, each
+    in a process of its own (see the module docstring); the frame and the
+    gradients held against the first root's.  Returns root -> [row a
+    turn]."""
+    import tempfile
+
+    turns: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for t, root in enumerate(list(roots) + list(reversed(roots))):
+            path = str(Path(root).resolve())
+            out = os.path.join(tmp, f"array_{t}.pt")
+            proc = subprocess.run([sys.executable, "-c", _ARRAY_SCRIPT, str(iters), out],
+                                  cwd=path, env=dict(os.environ, PYTHONPATH=path),
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"array study under {root} failed:\n{proc.stderr[-4000:]}")
+            row = json.loads(proc.stdout.strip().splitlines()[-1])
+            got = torch.load(out)
+            if not turns:
+                first = got
+            row["image_max_abs_err"] = checks._max_abs_err(got["image"], first["image"])
+            row["grad_max_rel_err"] = max(
+                float((g - f).abs().max() / f.abs().max().clamp_min(1e-30))
+                for g, f in zip(got["grads"], first["grads"]))
+            turns.setdefault(root, []).append(row)
+            print(json.dumps(dict(array_turn=t, root=root, **row)), flush=True)
+    return turns
+
+
 def _mesh_data():
     """The tests' numpy mesh generator (``tests/torch_mesh_data.py``)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
@@ -539,9 +625,10 @@ def mesh_study(roots, reps: int = 10):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--study", choices=("march", "shade", "mesh"), default="march",
-                    help="the march kernel, the composite and ingredients kernels, or "
-                         "the mesh kernel M1 by tree (--frames)")
+    ap.add_argument("--study", choices=("march", "shade", "mesh", "array"), default="march",
+                    help="the march kernel, the composite and ingredients kernels, "
+                         "the mesh kernel M1 by tree (--frames), or the array-texture "
+                         "frame by tree (--frames)")
     ap.add_argument("--old", help="a march.cu with the first port's entry point, or a "
                                   "shade.cu (with --study shade)")
     ap.add_argument("--kernels", default="new", help="comma-separated: new, old")
@@ -561,6 +648,10 @@ def main() -> int:
         if not args.frames:
             ap.error("--study mesh takes the tree roots to compare in --frames")
         rows, frame_rows = mesh_study(args.frames.split(",")), {}
+    elif args.study == "array":
+        if not args.frames:
+            ap.error("--study array takes the tree roots to compare in --frames")
+        rows, frame_rows = array_study(args.frames.split(",")), {}
     else:
         run = study if args.study == "march" else shade_study
         rows = run(args.kernels.split(","), args.old, profile=args.profile)

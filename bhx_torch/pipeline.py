@@ -1,7 +1,11 @@
 """The render pipeline: adaptive ray ladder, sky pass, post chain
 (counterpart of ``bhx/pipeline.py``).
 
-    ladder trace -> sky kernel -> bloom -> mix -> ACES -> FXAA
+    ladder trace -> sky -> bloom -> mix -> ACES -> FXAA
+
+The sky is the sky kernel on record rows in procedural texture mode, and
+a sample of the scene's sky texture in array mode.  :func:`render_tiled`
+renders a frame densely in row bands with resumable checkpoints.
 
 The record travels as an (8, H, W) tensor of planes
 ``cr cg cb alpha amount dx dy dz`` and the post chain as a channel-major
@@ -13,19 +17,27 @@ escape direction (reference ray.wgsl:167-243).
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
+from bhx_torch import tracer
 from bhx_torch.config import RenderConfig
-from bhx_torch.kernels.sky import sky_rows
 from bhx_torch.post import bloom_chain_chw, fxaa_pass_chw, mix_pass, tonemap_pass
 from bhx_torch.scene import Scene
-from bhx_torch.tracer import camera_rays, trace_rays_record_rows
+from bhx_torch.shading import sample_sky
+from bhx_torch.tracer import (
+    REC_ALPHA, REC_DIR, camera_rays, finalize_image, finalize_image_rows, sky_texture_for,
+    trace_rays_record_rows,
+)
 
-# Record rows: 0-2 color, 3 alpha, 4 amount, 5-7 direction.
-_R_ALPHA = 3
-_R_DIR = slice(5, 8)
+
+def sky_pass(img4: torch.Tensor, sky_tex, texture_mode: str = "array") -> torch.Tensor:
+    """Escape-encoded pixels (alpha 0, rgb = direction) to sky color, hit
+    pixels passed through (reference sky.wgsl:17-29): (..., 4) -> (..., 3)."""
+    sky = sample_sky(sky_tex, img4[..., :3], texture_mode)
+    return torch.where((img4[..., 3] == 0.0).unsqueeze(-1), sky, img4[..., :3])
 
 
 def _dirs_aligned_ch(a, b, cos_thresh: float):
@@ -65,8 +77,8 @@ def _refine_masks(prev_rows: torch.Tensor, cfg: RenderConfig, width: int,
         return torch.cat([p[..., 1:, :], p[..., -1:, :]], dim=-2)
 
     ct = math.cos(cfg.angle_division_threshold)
-    a_c = prev_rows[_R_ALPHA]
-    d_c = prev_rows[_R_DIR]
+    a_c = prev_rows[REC_ALPHA]
+    d_c = prev_rows[REC_DIR]
     trd_c = sh_x(d_c)
     bld_c = sh_y(d_c)
     brd_c = sh_x(sh_y(d_c))
@@ -86,7 +98,7 @@ def _refine_masks(prev_rows: torch.Tensor, cfg: RenderConfig, width: int,
     fx = gx / m - tx
     fy = gy / m - ty
     dir_interp = (
-        (tl[_R_DIR] * (1 - fx) + up(trd_c) * fx) * (1 - fy)
+        (tl[REC_DIR] * (1 - fx) + up(trd_c) * fx) * (1 - fy)
         + (up(bld_c) * (1 - fx) + up(brd_c) * fx) * fy
     )
 
@@ -139,6 +151,11 @@ def ladder_trace_rows(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     return rows
 
 
+def ladder_trace(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """Interleaved (H, W, 8) form of :func:`ladder_trace_rows`."""
+    return ladder_trace_rows(scene, cfg).permute(1, 2, 0)
+
+
 def final_level_retrace_mask(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """The ladder's final level's re-trace mask, flat bool (W*H,): the
     active set of a frame's largest march launch."""
@@ -166,18 +183,82 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
     # One sky pass for the whole frame: hit pixels' residual transmission
     # and escapes' full sky in the same formula.
     h, w = rows.shape[1], rows.shape[2]
-    chw = sky_rows(rows.reshape(8, h * w).contiguous(), cfg.show_sky).reshape(3, h, w)
+    chw = finalize_image_rows(rows.reshape(8, h * w), sky_texture_for(scene, cfg),
+                              cfg.show_sky, cfg.texture_mode).reshape(3, h, w)
+    return _post(chw, cfg).permute(1, 2, 0)
 
+
+def _post(chw: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """The post chain on a (3, H, W) image: bloom, mix, ACES, FXAA."""
     if cfg.bloom.enabled:
         chw = mix_pass(chw, bloom_chain_chw(chw, cfg.bloom), cfg.bloom.mix_ratio)
     if cfg.tonemap:
         chw = tonemap_pass(chw, channel_major=True)
     if cfg.fxaa.enabled:
         chw = fxaa_pass_chw(chw, cfg.fxaa)
-    return chw.permute(1, 2, 0)
+    return chw
 
 
 def render_image(scene: Scene, cfg: RenderConfig = RenderConfig()) -> np.ndarray:
     """Render and convert to a (height, width, 3) uint8 numpy image."""
     rgb = render(scene, cfg).detach().cpu().numpy()
     return (np.clip(rgb, 0.0, 1.0) * 255.0 + 0.5).astype("uint8")
+
+
+def render_tiled(scene: Scene, cfg: RenderConfig, band_rows: int = 256,
+                 checkpoint_path: str = None, verbose: bool = False,
+                 max_retries: int = 2) -> torch.Tensor:
+    """Render a (height, width, 3) frame densely in row bands, with
+    resumable checkpoints (``bhx.pipeline.render_tiled``).
+
+    After each band the record assembled so far is written to
+    ``checkpoint_path`` (.npz; a temporary file, then renamed), so an
+    interrupted render resumes at its next band; a checkpoint of another
+    frame shape or banding is ignored.  A band is idempotent: a failure is
+    retried up to ``max_retries`` times before it propagates, naming the
+    band.  Every band traces ``band_rows`` rows (the last is anchored to
+    the frame's bottom edge); the sky and the post chain run once, on the
+    assembled frame."""
+    h, w = cfg.height, cfg.width
+    rec = np.zeros((h, w, 8), np.float32)
+    start_band = 0
+    n_bands = -(-h // band_rows)
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as z:
+            if tuple(z["shape"]) == (h, w) and int(z["band_rows"]) == band_rows:
+                rec = z["rec"]
+                start_band = int(z["next_band"])
+
+    o, d = camera_rays(scene.camera, w, h)
+    for band in range(start_band, n_bands):
+        y0 = band * band_rows
+        y1 = min(y0 + band_rows, h)
+        s0 = min(y0, max(h - band_rows, 0))
+        ob = o[s0:s0 + band_rows].reshape(-1, 3)
+        db = d[s0:s0 + band_rows].reshape(-1, 3)
+        for attempt in range(max_retries + 1):
+            try:
+                out = tracer.trace_rays_record(ob, db, scene, cfg)
+                out = out.detach().cpu().numpy().reshape(-1, w, 8)
+                break
+            except Exception as e:  # bounded retry: a band is idempotent
+                if attempt == max_retries:
+                    saved = (f" (progress saved to {checkpoint_path}; re-run to resume)"
+                             if checkpoint_path else "")
+                    raise RuntimeError(f"band {band + 1}/{n_bands} failed after "
+                                       f"{max_retries + 1} attempts{saved}") from e
+                if verbose:
+                    print(f"band {band + 1}/{n_bands} attempt {attempt + 1} failed "
+                          f"({e!r}); retrying")
+        rec[y0:y1] = out[out.shape[0] - (y1 - y0):]
+        if checkpoint_path:
+            tmp = checkpoint_path + ".tmp.npz"
+            np.savez_compressed(tmp, rec=rec, next_band=band + 1, shape=(h, w),
+                                band_rows=band_rows)
+            os.replace(tmp, checkpoint_path)
+        if verbose:
+            print(f"band {band + 1}/{n_bands} done")
+
+    record = torch.from_numpy(rec).to(o.device)
+    rgb = finalize_image(record, sky_texture_for(scene, cfg), cfg.show_sky, cfg.texture_mode)
+    return _post(rgb.permute(2, 0, 1), cfg).permute(1, 2, 0)

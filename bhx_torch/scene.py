@@ -4,18 +4,21 @@ Every leaf is a float32 tensor on one device; ``to(device)`` moves a
 whole scene.  The constructors (``Scene.default``, ``Camera.default``,
 ``BlackHole.default``, :func:`scene_from_state`) put it on the CUDA card
 unless given another device, and raise when there is no card: the CPU
-(the plain versions of the kernels) is asked for by name.  The
-procedural main path never reads the baked disk/sky/LUT textures of
-``bhx.Scene``, so they are not carried here.  A :class:`Mesh` holds a
-triangle mesh with its BVH (``bhx_torch.geometry.obj.make_mesh`` builds
-one).
+(the plain versions of the kernels) is asked for by name.  The array
+textures of ``texture_mode="array"`` (disk, sky, blackbody LUT) are
+optional fields: one left unset is the default bake, which
+:func:`texture` takes from ``bhx_torch.assets.default_textures`` (baked
+and uploaded once per device) when an array-mode call first reads it, so
+a procedural render neither bakes nor uploads them.  A :class:`Mesh`
+holds a triangle mesh with its BVH (``bhx_torch.geometry.obj.make_mesh``
+builds one).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,31 +178,73 @@ class Mesh(_TensorData):
 MESH_INDEX_FIELDS = ("tri_points", "tri_normals", "node_left", "node_count", "lookup")
 
 
+# The array textures of a Scene, by field name.
+TEXTURE_FIELDS = ("disk_texture", "sky_texture", "temp_lut")
+
+
 @dataclasses.dataclass
 class Scene(_TensorData):
     """Camera, black hole, clock, the learnable 16x16x4 ``disk_gain`` grid
     (a multiplicative RGBA gain over the disk texture's uv square; all-ones
-    is the identity) and a tuple of :class:`Mesh`."""
+    is the identity; procedural mode), a tuple of :class:`Mesh`, and the
+    array textures of ``texture_mode="array"``, through which that mode's
+    gradients reach the texture content (None: the default bake, see
+    :func:`texture`)."""
 
     camera: Camera
     black_hole: BlackHole
     time: torch.Tensor  # () seconds, drives disk texture rotation
     disk_gain: torch.Tensor  # (16, 16, 4)
     meshes: Tuple[Mesh, ...] = ()
+    disk_texture: Optional[torch.Tensor] = None  # (Th, Tw, 4) RGBA in [0, 1]
+    sky_texture: Optional[torch.Tensor] = None  # (Sh, Sw, 3) equirect, radiance^(1/4)
+    temp_lut: Optional[torch.Tensor] = None  # (Lh, Lw, 3) x = shift, y = temperature
 
     def __post_init__(self):
         self.meshes = tuple(self.meshes)
 
     @staticmethod
-    def default(device=None, meshes: Tuple[Mesh, ...] = ()) -> "Scene":
+    def default(device=None, meshes: Tuple[Mesh, ...] = (), disk_texture=None,
+                sky_texture=None, temp_lut=None) -> "Scene":
+        """The reference's startup scene.  A texture given (an array or a
+        tensor) is put on the scene's device as float32; one not given is
+        the default bake (:func:`texture`)."""
         device = _device(device)
+
+        def tex(t):
+            if t is None:
+                return None
+            t = t if torch.is_tensor(t) else torch.from_numpy(np.asarray(t, np.float32))
+            return t.to(device, torch.float32)
+
         return Scene(
             camera=Camera.default(device),
             black_hole=BlackHole.default(device),
             time=_f32(0.0, device),
             disk_gain=torch.ones((16, 16, 4), dtype=torch.float32, device=device),
             meshes=meshes,
+            disk_texture=tex(disk_texture),
+            sky_texture=tex(sky_texture),
+            temp_lut=tex(temp_lut),
         )
+
+
+def texture(scene: Scene, name: str) -> torch.Tensor:
+    """The scene's array texture ``name`` (one of TEXTURE_FIELDS), or, when
+    it is unset, the default bake on the scene's device
+    (``bhx_torch.assets.default_textures``: baked and uploaded once per
+    device)."""
+    t = getattr(scene, name)
+    if t is None:
+        from bhx_torch.assets import default_textures
+
+        t = default_textures(scene.time.device)[name]
+    return t
+
+
+def with_textures(scene: Scene) -> Scene:
+    """``scene`` with every unset array texture set to the default bake."""
+    return dataclasses.replace(scene, **{n: texture(scene, n) for n in TEXTURE_FIELDS})
 
 
 def with_spin(scene: Scene, spin: float) -> Scene:
@@ -213,9 +258,9 @@ def with_spin(scene: Scene, spin: float) -> Scene:
 def scene_from_state(state: Mapping, device=None) -> Scene:
     """Build a :class:`Scene` from the numpy dict that
     ``bhx.scene.scene_to_state`` returns, so both packages render the same
-    scene.  The baked textures and materials in ``state`` are not used by
-    the procedural path and are ignored; a ``None`` gain becomes the
-    all-ones identity grid.  Each mesh comes as a dict of its fields, its
+    scene, textures included (an absent texture is the default bake).  The
+    materials, which no shader reads, are ignored; a ``None`` gain becomes
+    the all-ones identity grid.  Each mesh comes as a dict of its fields, its
     ``name`` a 0-d string array; index arrays stay int32.  On the CUDA
     card unless ``device`` names another."""
     device = _device(device)
@@ -251,4 +296,6 @@ def scene_from_state(state: Mapping, device=None) -> Scene:
         time=_f32(state["time"], device),
         disk_gain=_f32(gain, device),
         meshes=tuple(mesh(m) for m in state.get("meshes", ())),
+        **{n: _f32(state[n], device) for n in TEXTURE_FIELDS
+           if state.get(n) is not None},
     )

@@ -8,10 +8,15 @@ hit absorbs the ray, and a sphere hit advances the ray to the boundary; a
 march phase runs the geodesic march kernel on the rays inside.  Nothing
 is shaded during the trace: the march records up to K=4 disk crossings
 per ray, a straight phase at most one opaque mesh hit, and one batched
-shade + composite kernel runs at the end (the deferred record of
+shade + composite runs at the end (the deferred record of
 ``march_mode="pallas"``), the mesh hit weighted by the transmission of
-every crossing before it.  The result is the sky-free record: 8 rows
-``cr cg cb alpha amount dx dy dz``.
+every crossing before it.  In procedural texture mode the composite is a
+kernel; in array mode it is plain torch, :func:`shading.disk_shade` on
+the valid slots and a cumulative product, as ``bhx`` composites it in jnp.
+The result is the sky-free record: 8 rows ``cr cg cb alpha amount dx dy
+dz``.  The public API (:func:`trace_rays`, :func:`trace_image`, their
+record variants, :func:`finalize_sky`, :func:`finalize_image`) takes and
+gives the interleaved (..., 8) record of ``bhx.tracer``.
 
 Re-entry rounds run as masked launches whatever their live count: a phase
 with no live ray changes nothing, so no host sync is needed to skip it.
@@ -28,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from bhx_torch import kerr
 from bhx_torch.config import Integrator, RenderConfig
@@ -37,9 +43,21 @@ from bhx_torch.kernels.march import (
     CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, SLOT_ROWS, _OUT_FIXED, march, pack_params,
 )
 from bhx_torch.kernels.shade import composite, pack_shade_params
-from bhx_torch.scene import Camera, Scene, const
+from bhx_torch.kernels.sky import sky_finalize, sky_rows
+from bhx_torch.scene import Camera, Scene, const, texture
+from bhx_torch.shading import disk_shade, sample_sky
 
 DEFAULT_ROUNDS = 2
+
+# Record channels (rows): 0-2 color, 3 alpha, 4 amount, 5-7 escape direction.
+REC_ALPHA = 3
+REC_AMOUNT = 4
+REC_DIR = slice(5, 8)
+
+# Profiler ranges of the array-texture stages, which are plain torch
+# (``bench.frame_profile`` reads the device time of the kernels they launch).
+ARRAY_COMPOSITE = "bhx_torch.array_composite"
+ARRAY_SKY = "bhx_torch.array_sky"
 
 
 def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -299,6 +317,45 @@ def _trace_phases(state: Dict, scene: Scene, cfg: RenderConfig,
     return state
 
 
+def _array_composite(slots: torch.Tensor, cam_dist: torch.Tensor, scene: Scene,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """The array-mode shade + front-to-back composite of the K crossing
+    slots (``bhx/tracer.py:984-1011``): each valid slot shaded by
+    :func:`disk_shade` on the scene's disk texture and LUT, its color
+    clipped, then composited by a cumulative product of transmissions.
+    Only the valid slots are shaded; the others carry opacity 0, as the
+    reference's mask gives them, so values and gradients are the
+    reference's.  At 1918x1081 this beats shading all K x N slots and
+    masking, as ``bhx`` does, despite its one host sync: 42-47 against
+    62-65 ms a frame, 21-22 against 162 ms a texture-gradient step
+    (one H100; ``march_study --study array``, PERF.md).  Returns the (4, N) rows r,
+    g, b, transmission."""
+    bh = scene.black_hole
+    cf, k_slots, n = CROSS_FIELDS, MAX_CROSSINGS, cam_dist.shape[0]
+    with record_function(ARRAY_COMPOSITE):
+        rot_mat, _ = bh.disk_frame()
+        valid = slots.reshape(k_slots, cf, n)[:, 6] > 0.5
+        sel = valid.reshape(-1).nonzero().squeeze(1)  # k * n + ray
+        k = torch.div(sel, n, rounding_mode="floor")
+        base = k * (cf * n) + (sel - k * n)  # row k * cf of the ray's column
+        flat = slots.reshape(-1)
+        fields = [flat.index_select(0, base + f * n) for f in range(6)]
+        rgb, op = disk_shade(
+            torch.stack(fields[:3], -1), torch.stack(fields[3:6], -1),
+            cam_dist.index_select(0, sel - k * n), bh, rot_mat,
+            texture(scene, "disk_texture"), texture(scene, "temp_lut"), scene.time,
+            show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift,
+        )
+        op_kn = cam_dist.new_zeros((k_slots * n,)).index_copy(0, sel, op)
+        rgb_kn = cam_dist.new_zeros((k_slots * n, 3)).index_copy(
+            0, sel, torch.clamp(rgb, 0.0, 1.0))
+        op_kn, rgb_kn = op_kn.reshape(k_slots, n), rgb_kn.reshape(k_slots, n, 3)
+        trans = torch.cumprod(1.0 - op_kn, dim=0)
+        trans_before = torch.cat([cam_dist.new_ones((1, n)), trans[:-1]])
+        color = ((trans_before * op_kn).unsqueeze(-1) * rgb_kn).sum(0)
+        return torch.cat([color.t(), trans[-1:]])
+
+
 def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
                     cam_dist: torch.Tensor):
     """One batched shade + composite of the recorded crossings, then the
@@ -308,7 +365,9 @@ def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
     b, amount."""
     bh = scene.black_hole
     n = cam_dist.shape[0]
-    if cfg.show_disk:
+    if cfg.show_disk and cfg.texture_mode == "array":
+        rgbt = _array_composite(state["slots"], cam_dist, scene, cfg)
+    elif cfg.show_disk:
         rot_mat, _ = bh.disk_frame()
         rgbt = composite(
             state["slots"], cam_dist, pack_shade_params(bh, rot_mat, scene.time),
@@ -399,3 +458,87 @@ def crossing_overflow_stats(scene: Scene, cfg: RenderConfig, width: int,
         dropped_total=dropped.sum(),
         max_count=state["true_count"].max(),
     )
+
+
+def trace_rays_record(origins: torch.Tensor, directions: torch.Tensor, scene: Scene,
+                      cfg: RenderConfig, rounds: int = DEFAULT_ROUNDS,
+                      active: torch.Tensor = None) -> torch.Tensor:
+    """Trace a flat batch of rays to the sky-free record: (N, 3) -> (N, 8),
+    channels [color(3), alpha, amount, dir(3)] (the interleaved form of
+    :func:`trace_rays_record_rows`)."""
+    return trace_rays_record_rows(origins, directions, scene, cfg, rounds, active).t().contiguous()
+
+
+def sky_texture_for(scene: Scene, cfg: RenderConfig):
+    """The sky texture ``cfg`` reads: the scene's in array mode, none in
+    procedural mode."""
+    return texture(scene, "sky_texture") if cfg.texture_mode == "array" else None
+
+
+def finalize_image(record: torch.Tensor, sky_tex, show_sky: bool = True,
+                   texture_mode: str = "array") -> torch.Tensor:
+    """Final rgb from a record, (..., 8) -> (..., 3): ``color + amount *
+    sky(dir)`` where amount > 0.001, exact for hits and escapes alike
+    (escapes carry color 0, amount 1).  Procedural mode runs the sky
+    finalize kernel (``kernels.sky.sky_finalize``: its plain version on the
+    CPU); array mode samples ``sky_tex``."""
+    if texture_mode == "procedural":
+        return sky_finalize(record.contiguous(), show_sky)
+    return finalize_image_rows(record.movedim(-1, 0), sky_tex, show_sky,
+                               texture_mode).movedim(0, -1)
+
+
+def finalize_sky(record: torch.Tensor, sky_tex, show_sky: bool = True,
+                 texture_mode: str = "array") -> torch.Tensor:
+    """The public alpha-encoded output of a record, (..., 8) -> (..., 4):
+    final pixels get the sky composited into their residual transmission
+    (reference ray.wgsl:587-592), escapes return (direction, alpha 0) for
+    the sky pass or the ladder's interpolation."""
+    escape = (record[..., REC_ALPHA] == 0.0).unsqueeze(-1)
+    rgb = torch.where(escape, record[..., REC_DIR],
+                      finalize_image(record, sky_tex, show_sky, texture_mode))
+    return torch.cat([rgb, record[..., REC_ALPHA:REC_ALPHA + 1]], dim=-1)
+
+
+def finalize_image_rows(rows: torch.Tensor, sky_tex, show_sky: bool = True,
+                        texture_mode: str = "array") -> torch.Tensor:
+    """Final rgb rows from record rows, (8, ...) -> (3, ...): the row-major
+    form of :func:`finalize_image`.  Procedural mode runs the sky kernel on
+    record rows (``kernels.sky.sky_rows``); array mode samples ``sky_tex``."""
+    if texture_mode == "procedural":
+        out = sky_rows(rows.reshape(8, -1).contiguous(), show_sky)
+        return out.reshape((3,) + rows.shape[1:])
+    if not show_sky:
+        return rows[0:3]
+    amount = rows[REC_AMOUNT]
+    with record_function(ARRAY_SKY):
+        sky = sample_sky(sky_tex, rows[REC_DIR].movedim(0, -1), "array").movedim(-1, 0)
+        w = torch.where(amount > 0.001, amount, 0.0)
+        return rows[0:3] + w * sky
+
+
+def trace_rays(origins: torch.Tensor, directions: torch.Tensor, scene: Scene,
+               cfg: RenderConfig, rounds: int = DEFAULT_ROUNDS,
+               active: torch.Tensor = None) -> torch.Tensor:
+    """Trace a flat batch of rays: origins and directions (N, 3) -> (N, 4),
+    rgb and the reference's alpha encoding: alpha 1 where the color is
+    final (the sky composited into the residual transmission), alpha 0 with
+    rgb = the escape direction for clean escapes."""
+    rec = trace_rays_record(origins, directions, scene, cfg, rounds, active)
+    return finalize_sky(rec, sky_texture_for(scene, cfg), cfg.show_sky, cfg.texture_mode)
+
+
+def trace_image(scene: Scene, cfg: RenderConfig, width: int, height: int,
+                rounds: int = DEFAULT_ROUNDS) -> torch.Tensor:
+    """Trace every pixel of a (height, width) image densely: (height, width, 4)."""
+    o, d = camera_rays(scene.camera, width, height)
+    out = trace_rays(o.reshape(-1, 3), d.reshape(-1, 3), scene, cfg, rounds)
+    return out.reshape(height, width, 4)
+
+
+def trace_image_record(scene: Scene, cfg: RenderConfig, width: int, height: int,
+                       rounds: int = DEFAULT_ROUNDS) -> torch.Tensor:
+    """The dense sky-free record image: (height, width, 8)."""
+    o, d = camera_rays(scene.camera, width, height)
+    out = trace_rays_record(o.reshape(-1, 3), d.reshape(-1, 3), scene, cfg, rounds)
+    return out.reshape(height, width, 8)

@@ -32,8 +32,8 @@ Phases, each printed as it finishes:
 3b. the RK45 march and the Kerr march (spin 0.9) the same way, at 72x41,
    640x361 (with the composite of the Kerr trace's slots) and the last
    ladder level's two launches;
-3c. the slot-ingredients and interleaved-sky kernels, which lie on no
-   render path, driven once through their entry points;
+3c. the slot-ingredients kernel, which lies on no render path, and the
+   interleaved-sky kernel, driven once through their entry points;
 4. the default 1918x1081 frame through ``bhx_torch.bench.run_bench``:
    image checks, the kernel launches of the frames alone (zeroed just
    before, read just after the last frame), ms/frame, Mrays/s, crossing
@@ -77,10 +77,37 @@ Phases, each printed as it finishes:
    with the meshes and without them; and a dense 192x108 frame of the
    scene on the card against the plain path on the CPU (gated at 2%).
 
+8a. the array textures: seconds to bake each at full size (disk 512,
+   sky 2048x1024, blackbody LUT 256x64) into an emptied cache, seconds to
+   load each from the cache, and their upload to the card (shapes, bytes);
+8b. the 1918x1081 frame in array texture mode through ``run_bench``: the
+   march its only kernel (8 launches a frame; the array shade and sky are
+   plain torch), and where its device time goes (``bench.frame_profile``:
+   the array composite's and the array sky's device ms a frame);
+8c. a dense 192x108 array frame on the card against the CPU (2%);
+8d. the array frame's gradient, the three textures among its leaves, card
+   against CPU (``checks.compare_gradients``, 1e-3);
+8e. ``render_tiled`` of the procedural 1918x1081 frame in bands of 256
+   rows: the whole frame (ms; march and composite launched per band, the
+   interleaved sky kernel once a frame), then a run interrupted at band 4
+   and resumed from its checkpoint, equal to the whole frame bit for bit;
+   the interleaved sky kernel against its plain version on the frame's
+   assembled (1081, 1918, 8) record, timed; the tiled frame against the
+   same frame rendered densely in one batch (2%);
+8f. ``trace_image`` (the public ``trace_rays``) at 640x361, card against
+   CPU: alpha agreement (>= 98%) and bad-pixel fraction (2%);
+8g. ``python -m bhx_torch render`` at 1918x1081 and ``... assets`` in
+   processes of their own: exit 0, the PNG's shape, seconds;
+8h. the viewer's ``render_frame`` of the default and of a Kerr request at
+   480x270: PNGs of that size, the frame's seconds.
+
 The second-to-last line is a JSON object with one entry per kernel (its
-launches in the frames of phase 4, or of phase 7 for ``mesh``, its
-launches per frame, max |err|, ms, plain ms, bound ms and what bounds it;
-no single PyTorch call computes any of them, so ``library_ms`` is null);
+launches in the frames of phase 4, of phase 7 for ``mesh`` and of phase
+8e's whole frame for ``sky_finalize``, its launches per frame, and its
+max |err|, ms, plain ms, bound ms and what bounds it at the shapes those
+frames give it: phase 3's last-level and final-frame launches, phase 7's
+mesh calls, 8e's assembled record; no single PyTorch call
+computes any of them, so ``library_ms`` is null);
 the last line is the device record.  Exits non-zero, printing neither, when
 there is no CUDA device, when ``bhx_torch`` cannot be imported, or when
 any phase fails.
@@ -88,6 +115,7 @@ any phase fails.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -119,7 +147,8 @@ def main() -> int:
 
     # The meshes are the tests' own (numpy alone): the viewer's cube and the
     # seeded torus.
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tests"))
     from torch_mesh_data import cube_arrays, torus_arrays, write_obj
 
     from bhx_torch import checks
@@ -131,8 +160,12 @@ def main() -> int:
     from bhx_torch.geometry import bvh, obj
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
     from bhx_torch.parallel import apply_params, fit_scene, scene_params
-    from bhx_torch.pipeline import ladder_trace_rows, render, trace_image_record_rows
-    from bhx_torch.scene import Camera, Scene, with_spin
+    from bhx_torch import assets, tracer
+    from bhx_torch.io import load_image
+    from bhx_torch.pipeline import (
+        ladder_trace_rows, render, render_tiled, trace_image_record_rows,
+    )
+    from bhx_torch.scene import TEXTURE_FIELDS, Camera, Scene, with_spin, with_textures
     from bhx_torch.tracer import march_batch, march_kwargs
 
     failures = []
@@ -187,8 +220,8 @@ def main() -> int:
     r = checks.compare_sky(record, cfg)
     check("sky 640x361 dense", r["ok"], r)
     interleaved = record.t().contiguous()
-    skyf_r = checks.compare_sky_finalize(interleaved, cfg, reps=10)
-    check("sky_finalize 640x361 dense", skyf_r["ok"], skyf_r)
+    r = checks.compare_sky_finalize(interleaved, cfg)
+    check("sky_finalize 640x361 dense", r["ok"], r)
 
     def last_level(name: str, m_scene, m_cfg) -> dict:
         """The last ladder level's two march launches (its re-trace mask as
@@ -242,7 +275,8 @@ def main() -> int:
             check("composite 640x361 dense kerr", r["ok"], r)
         last[name] = last_level(f"march_{name}", b_scene, b_cfg)
 
-    # --- 3c. the kernels on no render path, through their entry points ---
+    # --- 3c. the ingredients kernel (on no render path) and the interleaved sky,
+    # through their entry points ---
     reset_launch_counts()
     ing = shade.ingredients(dense_slots, dense_cam, sp)
     rgb = sky.sky_finalize(interleaved)
@@ -256,7 +290,8 @@ def main() -> int:
     # --- 4. the frames through the bench entry point ---
     # The counts are zeroed just before each run; run_bench reads them
     # just after its last frame, before its overflow diagnostic.
-    def frame_phase(name: str, march_kernel: str, extra=(), **kw) -> dict:
+    def frame_phase(name: str, march_kernel: str, extra=(), shaded=("composite", "sky"),
+                    **kw) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         bench = run_bench(1918, 1081, **kw)
@@ -269,7 +304,7 @@ def main() -> int:
         # Every frame makes the same launches, so the run's counts are
         # exactly frames x one frame's; each kernel of the path ran in every
         # frame and no other kernel ran.
-        path = (march_kernel, "composite", "sky", *extra)
+        path = (march_kernel, *shaded, *extra)
         counts_ok = all(
             (per_frame[k] > 0) == (k in path) and counts[k] == bench["frames"] * per_frame[k]
             for k in counts)
@@ -424,6 +459,163 @@ def main() -> int:
           dict(bad_frac=bad, gate=0.02, max_abs_err=float((on_card - on_cpu).abs().max()),
                cpu_s=cpu_s))
 
+    # --- 8a. the array textures: bake, cache, upload ---
+    assets.clear_cache()
+    bake_s, load_s = {}, {}
+    for name, bake in (("disk_texture", assets.disk_texture), ("sky_texture", assets.sky_texture),
+                       ("temp_lut", assets.blackbody_lut)):
+        t0 = time.perf_counter()
+        bake()
+        bake_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bake()
+        load_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    textures = assets.default_textures(scene.time.device)  # the key texture() uses
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tex_shapes = {k: list(t.shape) for k, t in textures.items()}
+    tex_bytes = {k: t.numel() * t.element_size() for k, t in textures.items()}
+    check("assets", tex_shapes == {"disk_texture": [512, 512, 4], "sky_texture": [1024, 2048, 3],
+                                   "temp_lut": [64, 256, 3]}
+          and all(t.device.type == "cuda" for t in textures.values()),
+          dict(bake_s=bake_s, load_s=load_s, upload_s=upload_s, shapes=tex_shapes,
+               device_bytes=tex_bytes, device_mb=sum(tex_bytes.values()) / 1e6))
+
+    # --- 8b. the 1918x1081 frame in array texture mode ---
+    # The array shade and sky are plain torch: the march is the frame's only
+    # kernel, 8 launches a frame (4 traces x 2 rounds).
+    array = frame_phase("frame 1918x1081 array", "march", shaded=(), iters=3,
+                        texture_mode="array")
+    if array["launches_per_frame"]["march"] != 8:
+        check("array launches a frame", False, dict(array["launches_per_frame"]))
+    array_cfg = cfg.replace(texture_mode="array")
+    prof = frame_profile(scene, array_cfg)
+    check("profile 1918x1081 array",
+          prof["array_composite_ms"] > 0.0 and prof["array_sky_ms"] > 0.0
+          and prof["composite_ms"] == 0.0 and prof["sky_ms"] == 0.0, prof)
+
+    # --- 8c. card against CPU in array mode ---
+    tex_scene = with_textures(scene)
+    small_array = small.replace(texture_mode="array")
+    on_card = render(tex_scene, small_array).cpu()
+    on_cpu = render(tex_scene.to("cpu"), small_array)
+    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+    check("frame 192x108 card vs cpu array", bool(torch.isfinite(on_card).all()) and bad <= 0.02,
+          dict(bad_frac=bad, gate=0.02, max_abs_err=float((on_card - on_cpu).abs().max())))
+
+    # --- 8d. the gradient, the three textures among its leaves ---
+    r = checks.compare_gradients(tex_scene, grad_cfg.replace(texture_mode="array"))
+    check("grad 64x36 card vs cpu array",
+          r["ok"] and all(k in r["rel_err"] for k in TEXTURE_FIELDS), r)
+
+    # --- 8e. render_tiled: the whole frame, then one interrupted and resumed ---
+    tiled_cfg = RenderConfig()
+    n_bands = -(-tiled_cfg.height // 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "bands.npz")
+        reset_launch_counts()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        whole = render_tiled(scene, tiled_cfg, band_rows=256)
+        end_ev.record()
+        end_ev.synchronize()
+        tiled_ms = start_ev.elapsed_time(end_ev)
+        tiled_launches = launch_counts()
+        real_trace = tracer.trace_rays_record
+        calls = []
+
+        def fail_at_band_4(*a, **kw):
+            calls.append(1)
+            if len(calls) == 4:
+                raise RuntimeError("injected failure at band 4")
+            return real_trace(*a, **kw)
+
+        tracer.trace_rays_record = fail_at_band_4
+        try:
+            render_tiled(scene, tiled_cfg, band_rows=256, checkpoint_path=ckpt, max_retries=0)
+            interrupted = False
+        except RuntimeError as e:
+            interrupted = "band 4/" in str(e)
+        finally:
+            tracer.trace_rays_record = real_trace
+        with np.load(ckpt) as z:
+            next_band = int(z["next_band"])
+        reset_launch_counts()
+        resumed = render_tiled(scene, tiled_cfg, band_rows=256, checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        resumed_launches = launch_counts()
+        # The last checkpoint holds the whole frame's record, the (1081,
+        # 1918, 8) input of the frame's one sky_finalize launch.
+        with np.load(ckpt) as z:
+            tiled_rec = torch.from_numpy(z["rec"]).to(dev)
+    tiled_err = float((resumed - whole).abs().max())
+    want = {"march": 2 * n_bands, "composite": n_bands, "sky_finalize": 1}
+    check("render_tiled 1918x1081",
+          interrupted and next_band == 3 and tiled_err == 0.0
+          and tuple(whole.shape) == (1081, 1918, 3) and bool(torch.isfinite(whole).all())
+          and all(tiled_launches[k] == want.get(k, 0) for k in tiled_launches)
+          and resumed_launches["march"] == 2 * (n_bands - 3)
+          and resumed_launches["sky_finalize"] == 1,
+          dict(bands=n_bands, ms=tiled_ms, max_abs_err=tiled_err, next_band=next_band,
+               launches=tiled_launches, resumed_launches=resumed_launches))
+    tiled_bench = dict(launches=tiled_launches, launches_per_frame=tiled_launches)
+    # B5 against its plain version on the record the tiled frame gives it.
+    skyf_r = checks.compare_sky_finalize(tiled_rec, tiled_cfg, reps=10)
+    check("sky_finalize 1918x1081 tiled", skyf_r["ok"], skyf_r)
+    # The tiled frame against the same frame rendered densely in one batch
+    # (each ray's trace does not depend on its band; the sky runs as B3 on
+    # rows there).
+    with torch.no_grad():
+        dense = render(scene, tiled_cfg.replace(use_ladder=False))
+    bad = float((whole - dense).abs().gt(2e-2).any(-1).float().mean())
+    check("render_tiled 1918x1081 vs dense render", bad <= 0.02,
+          dict(bad_frac=bad, gate=0.02, max_abs_err=float((whole - dense).abs().max())))
+
+    # --- 8f. the public tracer API: card against CPU ---
+    api_cfg = RenderConfig(max_iterations=600)
+    reset_launch_counts()
+    on_card = tracer.trace_image(scene, api_cfg, 640, 361).cpu()
+    api_launches = launch_counts()
+    on_cpu = tracer.trace_image(scene.to("cpu"), api_cfg, 640, 361)
+    alpha = float((on_card[..., 3] == on_cpu[..., 3]).float().mean())
+    bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
+    check("trace_rays 640x361 card vs cpu",
+          alpha >= 0.98 and bad <= 0.02 and api_launches["sky_finalize"] == 1,
+          dict(alpha_agree=alpha, bad_frac=bad, gate=0.02, launches=api_launches))
+
+    # --- 8g. the command line, in processes of its own ---
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        runs = {}
+        for name, args in (("render", ["render", "-o", png]), ("assets", ["assets"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "bhx_torch", *args], cwd=root,
+                                  capture_output=True, text=True, timeout=300)
+            runs[name] = dict(rc=proc.returncode, s=time.perf_counter() - t0,
+                              out=proc.stdout.strip()[-300:], err=proc.stderr.strip()[-500:])
+        shape = list(load_image(png).shape) if os.path.exists(png) else None
+    check("cli render + assets", all(r["rc"] == 0 for r in runs.values())
+          and shape == [1081, 1918, 3], dict(runs, png_shape=shape))
+
+    # --- 8h. the viewer ---
+    from bhx_torch.viewer import ViewerServer
+    from PIL import Image
+
+    server = ViewerServer()
+    req = {"pos": [0, 0, -19], "forward": [0, 0, 1], "fov": 1.0, "mass": 0.5, "spin": 0.0,
+           "disk_inner": 2.0, "disk_outer": 10.0, "feather": 0.3, "time": 0.0,
+           "show_disk": True, "show_texture": True, "show_redshift": True, "show_sky": True,
+           "bloom": True, "mix_ratio": 0.7, "fxaa": True, "tonemap": True, "ladder": False,
+           "kerr": False, "integrator": "euler", "step_size": 0.15, "max_iter": 800}
+    frames = {}
+    for name, r_req in (("default", req), ("kerr", dict(req, kerr=True, spin=0.9))):
+        server.render_frame(r_req)  # the first call of a setting builds and warms up
+        png_bytes, stats = server.render_frame(r_req)
+        img = np.asarray(Image.open(io.BytesIO(png_bytes)))
+        frames[name] = dict(stats, shape=list(img.shape), png_bytes=len(png_bytes))
+    check("viewer 480x270", all(f["shape"] == [270, 480, 3] for f in frames.values()), frames)
+
     if failures:
         _die("failed phases: " + ", ".join(failures))
 
@@ -447,7 +639,7 @@ def main() -> int:
         entry("composite", "shade.cu", "bhx/kernels/shade_pallas.py:499", euler, comp_r),
         entry("sky", "sky.cu", "bhx/kernels/shade_pallas.py:639", euler, sky_r),
         entry("ingredients", "shade.cu", "bhx/kernels/shade_pallas.py:246", None, ing_r),
-        entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723", None, skyf_r),
+        entry("sky_finalize", "sky.cu", "bhx/kernels/shade_pallas.py:723", tiled_bench, skyf_r),
         # No Pallas counterpart: M1 replaces the jnp lockstep traversal,
         # brute force and merge.  Its figures are the frame's launch (the
         # cube and the torus); the torus's alone (BVH branch) and the

@@ -142,6 +142,26 @@ def test_march_edge_cases_bit_identical(frame, branch, case):
         assert bool((steps == 5.0).all())
 
 
+@pytest.mark.parametrize("toggle", ["show_disk_0", "tex_opacity_min_1"])
+@pytest.mark.parametrize("branch", ["euler", "rk45", "kerr"])
+def test_march_toggles_bit_identical(frame, branch, toggle):
+    """The kernel's two feature arguments -- no disk (``show_disk=0``) and no
+    disk texture (``tex_opacity_min=1.0``) -- bit-identical to the plain
+    march."""
+    scene, cfg = _branch(frame, branch)
+    cfg = cfg.replace(**({"show_disk": False} if toggle == "show_disk_0"
+                         else {"show_disk_texture": False}))
+    kw = tmarch_kwargs(cfg)
+    assert kw["tex_opacity_min"] == 1.0 and kw["show_disk"] == (toggle != "show_disk_0")
+    rays, params, _ = march_batch(scene, cfg, cfg.width, cfg.height)
+    got = tmarch.march(rays, params, **kw)
+    want = tmarch.march_torch(rays, params, **kw)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) == 0.0
+    if toggle == "show_disk_0":
+        assert not bool(got[_SLOTS].any())
+
+
 def _random_slots(n: int, case: str, seed: int = 0):
     """Random crossing slots on the card, (SLOT_ROWS, n), their camera
     distances and a random disk_gain grid.  Each slot is valid on its own

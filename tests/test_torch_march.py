@@ -113,6 +113,30 @@ def test_march_matches_march_jnp(integrator, geodesics, frac, monkeypatch):
     assert bad.mean() <= frac, f"{bad.mean():.3%} rays differ"
 
 
+@pytest.mark.parametrize("toggle", [dict(show_disk=False), dict(tex_opacity_min=1.0)],
+                         ids=["show_disk_0", "tex_opacity_min_1"])
+def test_march_toggles_match_march_jnp(toggle):
+    """The march's two feature arguments (no disk: no crossing recorded;
+    no disk texture: the transmission bound's opacity factor 1.0) against
+    march_jnp with the same arguments, Euler."""
+    rows, params = _setup()
+    kcfg = MarchKernelConfig(max_iterations=STEPS, vote_every=4, unroll=4, **toggle)
+    want = np.stack([np.asarray(r) for r in march_jnp(
+        tuple(jnp.asarray(r) for r in rows), jnp.asarray(params), kcfg)])
+    got = _march_t(rows, params, **toggle)
+    assert np.isfinite(got).all()
+    bad = (np.abs(got - want) > 1e-3).any(axis=0)
+    assert bad.mean() <= 0.01, f"{bad.mean():.3%} rays differ"
+    o, base = tmarch._OUT_FIXED, _march_t(rows, params)
+    if "show_disk" in toggle:
+        assert (base[o["count"]] > 0.5).sum() > 20 and not got[o["count"]].any()
+        assert not got[tmarch.OUT_FIXED:tmarch.OUT_FIXED + tmarch.SLOT_ROWS].any()
+    else:
+        # The bound takes a crossing's opacity factor at 1.0, not at least
+        # 0.7: crossings dim the transmission bound more.
+        assert (got[o["amount"]] < base[o["amount"]] - 1e-3).sum() > 20
+
+
 @pytest.mark.parametrize("integrator, geodesics", [("euler", "pseudo"), ("rk45", "pseudo"),
                                                    ("euler", "kerr")],
                          ids=["euler", "rk45", "kerr"])

@@ -287,6 +287,32 @@ def test_import_and_render_pull_in_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_host_side_and_array_render_pull_in_no_jax():
+    """The host-side modules import, and an array-texture frame renders,
+    without jax or bhx."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "import bhx_torch, bhx_torch.io, bhx_torch.cli, bhx_torch.viewer\n"
+        "import bhx_torch.profiling, bhx_torch.assets, bhx_torch.entry\n"
+        "from bhx_torch import assets\n"
+        "scene = bhx_torch.Scene.default('cpu', disk_texture=assets.disk_texture(64),"
+        " sky_texture=assets.sky_texture(128, 64), temp_lut=assets.blackbody_lut(64, 16))\n"
+        "cfg = bhx_torch.RenderConfig(width=32, height=18, use_ladder=False,"
+        " max_iterations=200, texture_mode='array')\n"
+        "img = bhx_torch.render(scene, cfg)\n"
+        "assert tuple(img.shape) == (18, 32, 3) and bool(torch.isfinite(img).all())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bhx'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.fixture(scope="module")
 def mesh_scenes(tmp_path_factory):
     """(bhx scene, bhx_torch scene): ``small_scene`` from the outside

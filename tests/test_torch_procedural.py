@@ -5,6 +5,9 @@ through both packages."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,8 @@ from bhx_torch import shading as tshade
 from tests.common import small_scene
 
 torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _t(x):
@@ -86,6 +91,43 @@ def test_disk_texel_matches_jnp():
     u[0] = v[0] = 0.5  # the degenerate center
     want = jproc.disk_texel_m(jnp.asarray(u), jnp.asarray(v))
     _quantile_gate(tproc.disk_texel_m(_t(u), _t(v)).numpy(), want)
+
+
+def test_first_parallel_vector_math_call_is_exact():
+    """ROADMAP C.5, the unsteady texel test above: MKL's vector math (torch's
+    CPU sin, cos, sqrt, ...) sets itself up on its first call in a process,
+    and when torch splits that first call across a thread team woken from
+    sleep, the other threads' chunks can come back with ~12-bit results
+    (relative error up to 3e-4): the texel test's failures, all in the
+    second half of its array, when it was the first test of its xdist
+    worker to call sin/cos/sqrt.  Importing bhx_torch makes the first call
+    on one thread.  Each of 40 forked children of a process that imported
+    it puts itself in the failing state -- 8 threads, the team asleep, then
+    its first parallel cos -- and must get every value exact.  Without the
+    import's first call about one child in 15 fails (so 40 miss it 6% of
+    the time)."""
+    code = (
+        "import os, time, numpy as np, torch, bhx_torch\n"
+        "b = torch.from_numpy(np.random.default_rng(0).uniform(0.1, 3.0, 200000)"
+        ".astype(np.float32))\n"
+        "want = np.cos(b.numpy().astype(np.float64))\n"
+        "bad = 0\n"
+        "for _ in range(40):\n"
+        "    pid = os.fork()\n"
+        "    if pid == 0:\n"
+        "        torch.set_num_threads(8)\n"
+        "        torch.rsqrt(b)  # the thread team, with no call into MKL\n"
+        "        time.sleep(0.2)  # the team goes to sleep\n"
+        "        got = torch.cos(b).numpy()\n"
+        "        os._exit(int(np.abs(got - want).max() > 1e-6))\n"
+        "    bad += os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1]) != 0\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "0", f"{out.stdout.strip()} of 40 first calls inexact"
 
 
 def test_sky_radiance_matches_jnp():
@@ -186,11 +228,14 @@ def test_scene_with_meshes_raises():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(texture_mode="array"), "A13"),
+    (dict(texture_mode="x"), "texture_mode"),
 ])
 def test_config_rejects_unported_modes(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every texture mode of bhx is ported; any other raises, naming the field."""
+    with pytest.raises(ValueError, match=item):
         bhx_torch.RenderConfig(**kw)
+    for mode in ("procedural", "array"):
+        assert bhx_torch.RenderConfig(texture_mode=mode).texture_mode == mode
 
 
 def test_config_rejects_unknown_geodesics():

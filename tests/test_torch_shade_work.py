@@ -117,3 +117,19 @@ def test_composite_bound_is_the_closed_form(show_texture, show_redshift):
     assert got["ops_ms"] == pytest.approx(ops / checks.PEAK_F32_OPS * 1e3, rel=1e-12)
     assert got["bound_ms"] == max(got["bytes_ms"], got["ops_ms"])
     assert got["bound_by"] == ("bytes" if got["bytes_ms"] >= got["ops_ms"] else "operations")
+
+
+@pytest.mark.parametrize("show_sky", [True, False])
+def test_sky_bound_counts_every_record_layout(show_sky):
+    """The sky pass's bound counts every pixel of the record, whichever
+    layout the sky kernels take: (8, N) rows, an (N, 8) record, or the
+    (H, W, 8) frame that ``render_tiled`` finalizes."""
+    rng = np.random.default_rng(3)
+    frame = rng.uniform(-1, 1, (9, 7, 8)).astype(np.float32)
+    frame[..., 4] = np.where(rng.uniform(size=(9, 7)) < 0.4, 0.0005, frame[..., 4])
+    frame = torch.from_numpy(frame)
+    cfg = RenderConfig(show_sky=show_sky)
+    sky = float((frame[..., 4] > 0.001).sum()) if show_sky else 0.0
+    want = checks.bound(sky * checks.SKY_PIXEL_OPS, 4.0 * (7 * 63 + 3 * sky))
+    for rec in (frame, frame.reshape(-1, 8), frame.reshape(-1, 8).t().contiguous()):
+        assert checks.sky_bound(rec, cfg) == want, tuple(rec.shape)
