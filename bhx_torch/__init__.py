@@ -10,8 +10,9 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.geometry   ray-shape tests, BVH build, OBJ loading (C++ core),
                        mesh traversal
   bhx_torch.procedural hash-Perlin disk texel, blackbody tint, star sky
+  bhx_torch.physics    the geodesic force, conserved h^2, capture and deflection
   bhx_torch.kerr       Kerr Hamiltonian, null momentum, hand-written dH/dx
-  bhx_torch.integrate  the Cash-Karp tableau of the RK45 march
+  bhx_torch.integrate  the Cash-Karp tableau of the RK45 march, Euler and RK45 steps
   bhx_torch.shading    sky mapping, ACES, texture sampling, the array disk shade
   bhx_torch.tracer     straight + march phases, deferred disk record, the
                        public tracer API (trace_rays, finalize_*)
@@ -20,13 +21,16 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.post       bloom, mix, ACES, FXAA
   bhx_torch.kernels    march (Euler, RK45, Kerr) / composite / ingredients /
                        sky / mesh kernels and their plain versions
-  bhx_torch.bench      the 1918x1081 frame timed on the card, the gradient gate
-  bhx_torch.parallel   scene fitting by Adam on one device
+  bhx_torch.bench      the 1918x1081 frame timed on the card, the numerics and
+                       gradient gates
+  bhx_torch.parallel   torch.distributed: tile-sharded trace and render, scene
+                       fitting by Adam with all-reduced gradients, spawn,
+                       bench_scaling (bhx_torch.scaling: its command line)
   bhx_torch.io         PNG and scene checkpoint I/O (bhx's .npz layout)
   bhx_torch.cli        ``python -m bhx_torch render | bench | assets | fit``
   bhx_torch.viewer     the HTTP viewer
   bhx_torch.profiling  stage timing, frame_report
-  bhx_torch.entry      a small forward render for a quick check
+  bhx_torch.entry      a small forward render and a sharded dry run for a quick check
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors
 launch the kernel, which is built with nvcc on first use.  ``render`` is

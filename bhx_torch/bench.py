@@ -1,6 +1,7 @@
 """Throughput of the default frame on one CUDA card (counterpart of
-``bhx/bench.py:run_bench``), and the card's gradient gate
-(:func:`grad_check`, counterpart of ``bhx/bench.py:grad_check``).
+``bhx/bench.py:run_bench``), the card's numerics gate (:func:`parity_check`)
+and its gradient gate (:func:`grad_check`), counterparts of
+``bhx/bench.py``'s.
 
 The frame is the full default pipeline -- 4-level ladder, the march
 (Euler by default, or RK45, or exact Kerr geodesics at a given spin),
@@ -271,4 +272,44 @@ def _grad_check(dev: torch.device, width: int, height: int, rel_tol: float) -> D
         "grad_rel_err": rel,
         "grad_s": grad_s,
         "grad_ok": bool(stable_frac > 0.5 and rel < rel_tol),
+    }
+
+
+def parity_check(width: int = 192, height: int = 108, atol: float = 2e-2,
+                 max_bad_frac: float = 0.02) -> Dict:
+    """The card's numerics gate (counterpart of ``bhx/bench.py:parity_check``):
+    the kernel pipeline on the card must reproduce the plain pipeline on
+    the CPU for the default scene at :func:`parity_config`, by
+    :func:`compare_frames`.  Raises without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("parity_check runs on a CUDA device; none is available")
+    out = compare_frames(Scene.default("cuda"), parity_config(width, height), atol,
+                         max_bad_frac)
+    out["device"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def parity_config(width: int, height: int) -> RenderConfig:
+    """:func:`parity_check`'s frame: dense, 600 march iterations, no bloom,
+    FXAA or tonemap."""
+    return RenderConfig(width=width, height=height, use_ladder=False, max_iterations=600,
+                        fxaa=FxaaConfig(enabled=False), bloom=BloomConfig(enabled=False),
+                        tonemap=False)
+
+
+def compare_frames(scene: Scene, cfg: RenderConfig, atol: float = 2e-2,
+                   max_bad_frac: float = 0.02) -> Dict:
+    """``scene``'s frame on its device against the same frame on the CPU,
+    up to the chaotic rays near the photon sphere: at most ``max_bad_frac``
+    of the pixels differ by more than ``atol`` in a channel, and every
+    value is finite."""
+    img = render(scene, cfg).cpu()
+    ref = render(scene.to("cpu"), cfg)
+    diff = (img - ref).abs()
+    bad = float(diff.gt(atol).any(-1).float().mean())
+    finite = bool(torch.isfinite(img).all())
+    return {
+        "parity_bad_frac": bad,
+        "parity_ok": bool(finite and bad <= max_bad_frac),
+        "max_abs_err": float(diff.max()),
     }

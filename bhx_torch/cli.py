@@ -1,10 +1,16 @@
 """Command line: ``python -m bhx_torch render | bench | assets | fit``
 (counterpart of ``bhx/cli.py``, with its flags).
 
-``bhx``'s ``--march-mode`` and ``--sharded`` have no counterpart: the port
-always runs the kernel path, on one device.  ``--device`` names that
-device; it defaults to the CUDA card (the CPU runs the kernels' plain
-versions).
+``bhx``'s ``--march-mode`` has no counterpart: the port always runs the
+kernel path.  ``--device`` names the device; it defaults to the CUDA card
+(the CPU runs the kernels' plain versions).  Under torchrun with more than
+one process, ``render --sharded`` tile-shards the frame's trace over the
+processes (``bhx_torch.parallel.render_sharded``) and ``fit`` shards every
+step (``fit_scene`` over the default group); each process works on its own
+card (``LOCAL_RANK``), or on the CPU with ``--device cpu``; rank 0 writes
+and prints:
+
+    torchrun --nproc-per-node 2 -m bhx_torch render --sharded -o frame.png
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -40,13 +47,13 @@ def _build_config(args):
     )
 
 
-def _build_scene(args):
+def _build_scene(args, device=None):
     import torch
 
     from bhx_torch.geometry.obj import make_mesh
     from bhx_torch.scene import Scene, _device
 
-    dev = _device(args.device)
+    dev = _device(args.device if device is None else device)
 
     def f32(x) -> torch.Tensor:
         return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -108,18 +115,55 @@ def _add_scene_flags(p: argparse.ArgumentParser) -> None:
         p.add_argument(f"--{flag}", action="store_true")
 
 
+def _join_world(args):
+    """Under torchrun with more than one process: join the process group
+    and return this rank's ``TileMesh`` (its card, or the CPU with
+    ``--device cpu``); None in a single process."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None
+    import torch
+
+    from bhx_torch.parallel import default_backend, init_distributed, tile_mesh
+
+    device = torch.device(args.device)
+    init_distributed(backend=default_backend(device))
+    mesh = tile_mesh(device=None if device.type == "cuda" else device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return mesh
+
+
+def _leave_world(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
 def cmd_render(args) -> int:
     from bhx_torch.io import save_png
+    from bhx_torch.parallel import render_sharded
     from bhx_torch.pipeline import render
 
-    scene = _build_scene(args)
-    cfg = _build_config(args)
-    t0 = time.perf_counter()
-    img = render(scene, cfg).cpu()  # waits for the card
-    dt = time.perf_counter() - t0
+    mesh = _join_world(args) if args.sharded else None
+    try:
+        scene = _build_scene(args, mesh.device if mesh else None)
+        cfg = _build_config(args)
+        t0 = time.perf_counter()
+        if mesh is not None:
+            img = render_sharded(scene, cfg, mesh).cpu()
+        else:
+            img = render(scene, cfg).cpu()  # waits for the card
+        dt = time.perf_counter() - t0
+    finally:
+        _leave_world(mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     save_png(args.output, img)
     rays = cfg.width * cfg.height
-    print(f"rendered {cfg.width}x{cfg.height} in {dt:.2f}s "
+    ranks = f" on {mesh.size} ranks" if mesh is not None else ""
+    print(f"rendered {cfg.width}x{cfg.height}{ranks} in {dt:.2f}s "
           f"({rays / dt / 1e6:.2f} Mrays/s incl. the kernel build) -> {args.output}")
     return 0
 
@@ -159,15 +203,21 @@ def cmd_fit(args) -> int:
     from bhx_torch.io import load_image
     from bhx_torch.parallel import fit_scene
 
-    scene = _build_scene(args)
-    cfg = dataclasses.replace(
-        _build_config(args), use_ladder=False,
-        fxaa=FxaaConfig(enabled=False), bloom=BloomConfig(enabled=False),
-        max_iterations=min(args.max_iterations, 400),
-    )
-    target = torch.from_numpy(load_image(args.target)[..., :3])
-    params, losses = fit_scene(scene, target, cfg, steps=args.steps, lr=args.lr,
-                               verbose=True)
+    mesh = _join_world(args)
+    try:
+        scene = _build_scene(args, mesh.device if mesh else None)
+        cfg = dataclasses.replace(
+            _build_config(args), use_ladder=False,
+            fxaa=FxaaConfig(enabled=False), bloom=BloomConfig(enabled=False),
+            max_iterations=min(args.max_iterations, 400),
+        )
+        target = torch.from_numpy(load_image(args.target)[..., :3])
+        params, losses = fit_scene(scene, target, cfg, steps=args.steps, lr=args.lr,
+                                   mesh=mesh, verbose=True)
+    finally:
+        _leave_world(mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     print("final loss:", losses[-1])
     for k, v in params.items():
         print(f"  {k} = {v.cpu().numpy()}")
@@ -184,6 +234,8 @@ def main(argv=None) -> int:
     pr = sub.add_parser("render", help="render a frame to PNG")
     _add_scene_flags(pr)
     pr.add_argument("-o", "--output", default="render.png")
+    pr.add_argument("--sharded", action="store_true",
+                    help="under torchrun: tile-shard the trace over the processes")
     pr.set_defaults(fn=cmd_render)
 
     pb = sub.add_parser("bench", help="throughput of the frame on the CUDA card")

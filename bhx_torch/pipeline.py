@@ -180,8 +180,14 @@ def render(scene: Scene, cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
     else:
         rows = trace_image_record_rows(scene, cfg, cfg.width, cfg.height)
 
-    # One sky pass for the whole frame: hit pixels' residual transmission
-    # and escapes' full sky in the same formula.
+    return image_from_rows(rows, scene, cfg)
+
+
+def image_from_rows(rows: torch.Tensor, scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The (H, W, 3) frame from its (8, H, W) sky-free record rows: one sky
+    pass for the whole frame (hit pixels' residual transmission and
+    escapes' full sky in the same formula; the sky kernel on rows in
+    procedural mode), then the post chain."""
     h, w = rows.shape[1], rows.shape[2]
     chw = finalize_image_rows(rows.reshape(8, h * w), sky_texture_for(scene, cfg),
                               cfg.show_sky, cfg.texture_mode).reshape(3, h, w)
@@ -259,6 +265,12 @@ def render_tiled(scene: Scene, cfg: RenderConfig, band_rows: int = 256,
         if verbose:
             print(f"band {band + 1}/{n_bands} done")
 
-    record = torch.from_numpy(rec).to(o.device)
+    return image_from_record(torch.from_numpy(rec).to(o.device), scene, cfg)
+
+
+def image_from_record(record: torch.Tensor, scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The (H, W, 3) frame from its interleaved (H, W, 8) sky-free record:
+    the sky finalize (the interleaved sky kernel in procedural mode), then
+    the post chain."""
     rgb = finalize_image(record, sky_texture_for(scene, cfg), cfg.show_sky, cfg.texture_mode)
-    return _post(rgb.permute(2, 0, 1), cfg).permute(1, 2, 0)
+    return _post(rgb.permute(2, 0, 1).contiguous(), cfg).permute(1, 2, 0)

@@ -255,6 +255,28 @@ def with_spin(scene: Scene, spin: float) -> Scene:
                             device=bh.spin.device)))
 
 
+def scene_to_state(scene: Scene) -> dict:
+    """The numpy snapshot of ``scene`` in ``bhx.scene.scene_to_state``'s
+    layout, which :func:`scene_from_state` reads back (an unset texture
+    stays absent; a mesh's name is a 0-d string array).  Processes pass
+    scenes to each other so."""
+    def fields(obj) -> dict:
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            out[f.name] = np.asarray(v) if f.name == "name" else v.detach().cpu().numpy()
+        return out
+
+    state = dict(camera=fields(scene.camera), black_hole=fields(scene.black_hole),
+                 time=scene.time.detach().cpu().numpy(),
+                 disk_gain=scene.disk_gain.detach().cpu().numpy(),
+                 meshes=tuple(fields(m) for m in scene.meshes))
+    for n in TEXTURE_FIELDS:
+        if getattr(scene, n) is not None:
+            state[n] = getattr(scene, n).detach().cpu().numpy()
+    return state
+
+
 def scene_from_state(state: Mapping, device=None) -> Scene:
     """Build a :class:`Scene` from the numpy dict that
     ``bhx.scene.scene_to_state`` returns, so both packages render the same

@@ -39,9 +39,11 @@ Phases, each printed as it finishes:
    before, read just after the last frame), ms/frame, Mrays/s, crossing
    overflow;
 4b. the same for the Kerr spin-0.9 frame and the RK45 frame;
-5. a dense 192x108 frame on the card against the plain path on the CPU
-   (bad-pixel fraction at 2e-2, gated at 2%);
-5b. the same for Kerr spin 0.9 (gated at 3%) and RK45 (2%);
+5. ``bhx_torch.bench.parity_check``: a dense 192x108 frame on the card
+   against the plain path on the CPU (bad-pixel fraction at 2e-2, gated
+   at 2%);
+5b. the same comparison (``bhx_torch.bench.compare_frames``) for Kerr
+    spin 0.9 (gated at 3%) and RK45 (2%);
 6. ``bhx_torch.bench.grad_check`` at its defaults (320x180): reverse-mode
    d/dmass through the kernels' forward and their replayed backward
    against Richardson-extrapolated central differences, gated on
@@ -99,7 +101,25 @@ Phases, each printed as it finishes:
 8g. ``python -m bhx_torch render`` at 1918x1081 and ``... assets`` in
    processes of their own: exit 0, the PNG's shape, seconds;
 8h. the viewer's ``render_frame`` of the default and of a Kerr request at
-   480x270: PNGs of that size, the frame's seconds.
+   480x270: PNGs of that size, the frame's seconds;
+9a. ``bhx_torch.parallel`` over a world of one NCCL rank in this process:
+   the sharded 1918x1081 record (dense, the march and composite launched)
+   equal to the dense record bit for bit, and ``render_sharded`` (the
+   interleaved sky kernel once) within 1e-6 of the dense no-ladder
+   ``render`` (the sky kernel on rows), each frame's ms;
+9b. two ranks spawned on the one card (``parallel.spawn``, gloo, which
+   stages the collectives' tensors through the host): each rank's sharded
+   record equal to the dense one bit for bit, its frame within 1e-6, the
+   march, composite and interleaved sky kernels launched in its frame, its
+   device and the frame's ms;
+9c. two sharded train steps of 6c's fit (200 march iterations) on those
+   ranks: losses and parameters equal across ranks, the first step's
+   summed gradients within 1e-3 (of each parameter's largest entry) of one
+   single-process step on the same inputs (its s and peak memory beside
+   them), s/step and peak memory a rank;
+9d. ``bench_scaling``'s rows for 1 and 2 ranks (two ranks on one card
+   measure the sharded program's overhead, not hardware scaling); the
+   phase within 90 s.  A rank that fails, dies or times out fails it.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the frames of phase 4, of phase 7 for ``mesh`` and of phase
@@ -152,20 +172,28 @@ def main() -> int:
     from torch_mesh_data import cube_arrays, torus_arrays, write_obj
 
     from bhx_torch import checks
-    from bhx_torch.bench import frame_profile, grad_check, run_bench
+    from bhx_torch.bench import (compare_frames, frame_profile, grad_check, parity_check,
+                                 parity_config, run_bench)
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
     from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
     from bhx_torch.kernels import mesh as mesh_mod
     from bhx_torch.kernels import shade, sky
     from bhx_torch.geometry import bvh, obj
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
-    from bhx_torch.parallel import apply_params, fit_scene, scene_params
+    import torch.distributed as dist
+
+    from bhx_torch import parallel
+    from bhx_torch.parallel import (
+        apply_params, fit_scene, make_optimizer, scene_params, train_step,
+    )
     from bhx_torch import assets, tracer
     from bhx_torch.io import load_image
     from bhx_torch.pipeline import (
         ladder_trace_rows, render, render_tiled, trace_image_record_rows,
     )
-    from bhx_torch.scene import TEXTURE_FIELDS, Camera, Scene, with_spin, with_textures
+    from bhx_torch.scene import (
+        TEXTURE_FIELDS, Camera, Scene, scene_to_state, with_spin, with_textures,
+    )
     from bhx_torch.tracer import march_batch, march_kwargs
 
     failures = []
@@ -320,21 +348,16 @@ def main() -> int:
                        integrator=Integrator.RK45)
 
     # --- 5. small dense frames: the card against the plain path on the CPU ---
-    small = RenderConfig(width=192, height=108, use_ladder=False, max_iterations=600,
-                         bloom=BloomConfig(enabled=False),
-                         fxaa=FxaaConfig(enabled=False), tonemap=False)
+    pc = parity_check()
+    check("frame 192x108 card vs cpu", pc["parity_ok"], pc)
+    small = parity_config(192, 108)
     for name, s_scene, s_cfg, gate in (
-            ("frame 192x108 card vs cpu", scene, small, 0.02),
             ("frame 192x108 card vs cpu kerr(spin=0.9)", kerr_scene,
              small.replace(geodesics="kerr"), 0.03),
             ("frame 192x108 card vs cpu rk45", scene,
              small.replace(integrator=Integrator.RK45), 0.02)):
-        on_card = render(s_scene, s_cfg).cpu()
-        on_cpu = render(s_scene.to("cpu"), s_cfg)
-        bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
-        check(name, bool(torch.isfinite(on_card).all()) and bad <= gate,
-              dict(bad_frac=bad, gate=gate,
-                   max_abs_err=float((on_card - on_cpu).abs().max())))
+        r = compare_frames(s_scene, s_cfg, 2e-2, gate)
+        check(name, r["parity_ok"], dict(r, gate=gate))
 
     # --- 6. the gradient gate on the card ---
     path = ("march", "composite", "sky")
@@ -615,6 +638,123 @@ def main() -> int:
         img = np.asarray(Image.open(io.BytesIO(png_bytes)))
         frames[name] = dict(stats, shape=list(img.shape), png_bytes=len(png_bytes))
     check("viewer 480x270", all(f["shape"] == [270, 480, 3] for f in frames.values()), frames)
+
+    # --- 9. distribution ---
+    phase9_t0 = time.perf_counter()
+    dense_cfg = RenderConfig(use_ladder=False)
+
+    def timed_ms(fn, iters: int = 3) -> float:
+        """CUDA-event ms of one call of ``fn`` after a warm-up call."""
+        fn()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        for _ in range(iters):
+            fn()
+        end_ev.record()
+        end_ev.synchronize()
+        return start_ev.elapsed_time(end_ev) / iters
+
+    # 9a. a world of one NCCL rank in this process: the sharded record and
+    # frame against the dense ones.
+    with torch.no_grad():
+        dense_rec = tracer.trace_image_record(scene, dense_cfg, 1918, 1081)
+        dense_img = render(scene, dense_cfg)
+        dense_ms = timed_ms(lambda: render(scene, dense_cfg))
+        parallel.init_distributed(f"localhost:{parallel.free_port()}", 1, 0, "nccl")
+        try:
+            mesh = parallel.tile_mesh(device=dev)
+            reset_launch_counts()
+            rec = parallel.trace_image_sharded(scene, dense_cfg, mesh, 1918, 1081)
+            torch.cuda.synchronize()
+            trace_launches = launch_counts()
+            reset_launch_counts()
+            img = parallel.render_sharded(scene, dense_cfg, mesh)
+            torch.cuda.synchronize()
+            render_launches = launch_counts()
+            sharded_ms = timed_ms(lambda: parallel.render_sharded(scene, dense_cfg, mesh))
+            world = (mesh.size, dist.get_backend(mesh.group))
+        finally:
+            dist.destroy_process_group()
+    rec_err = float((rec - dense_rec).abs().max())
+    img_err = float((img - dense_img).abs().max())
+    check("sharded 1918x1081 world 1 nccl",
+          world == (1, "nccl") and rec_err == 0.0 and img_err <= 1e-6
+          and trace_launches["march"] > 0 and trace_launches["composite"] > 0
+          and trace_launches["sky_finalize"] == 0
+          and render_launches["sky_finalize"] == 1 and render_launches["sky"] == 0,
+          dict(record_max_abs_err=rec_err, image_max_abs_err=img_err,
+               trace_launches=trace_launches, render_launches=render_launches,
+               sharded_ms=sharded_ms, dense_render_ms=dense_ms))
+
+    # 9b-9d. two ranks sharing the card (gloo), spawned: the sharded record
+    # and frame, two sharded train steps of 6c's fit, bench_scaling over 1
+    # and 2 ranks.  The single-process step on the same inputs first.  The
+    # steps march 200 iterations, not 400: two processes time-slice the
+    # card, and the phase has 90 s.
+    shard_fit_cfg = fit_cfg.replace(max_iterations=200)
+    params = {k: v.detach().clone().requires_grad_() for k, v in scene_params(scene).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step(params, make_optimizer(params, 1e-2), scene, target, shard_fit_cfg)
+    torch.cuda.synchronize()
+    single_step = dict(s=time.perf_counter() - t0,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    single_grads = {k: v.grad.detach().cpu() for k, v in params.items() if v.grad is not None}
+    del params
+    torch.cuda.empty_cache()
+    state = scene_to_state(scene)
+    jobs = [(parallel.frame_job, (state, dense_cfg)),
+            (parallel.fit_job, (state, target.cpu().numpy(), shard_fit_cfg, 2, 1e-2)),
+            (parallel.bench_job, (state, dense_cfg, [1, 2], 3))]
+    t0 = time.perf_counter()
+    try:
+        by_rank = parallel.spawn(parallel.run_jobs, 2, device="cuda", timeout=300, args=(jobs,))
+    except (RuntimeError, TimeoutError) as e:
+        by_rank = None
+        check("sharded 2 ranks spawn", False, dict(error=str(e)[-3000:]))
+    if by_rank is not None:
+        spawn_s = time.perf_counter() - t0
+        frames_2 = [r[0] for r in by_rank]
+        dense_rec_np, dense_img_np = dense_rec.cpu().numpy(), dense_img.cpu().numpy()
+        rows_b = [dict(rank=f["rank"], device=f["device"], device_name=f["device_name"],
+                       ms=f["ms"], launches=f["launches"],
+                       record_max_abs_err=float(np.abs(f["record"] - dense_rec_np).max()),
+                       image_max_abs_err=float(np.abs(f["image"] - dense_img_np).max()))
+                  for f in frames_2]
+        check("sharded 1918x1081 2 ranks gloo",
+              all(r["record_max_abs_err"] == 0.0 and r["image_max_abs_err"] <= 1e-6
+                  and all(r["launches"][k] > 0 for k in ("march", "composite", "sky_finalize"))
+                  for r in rows_b),
+              dict(ranks=rows_b, dense_render_ms=dense_ms, spawn_s=spawn_s))
+        fits = [r[1] for r in by_rank]
+        grad_err = {}
+        for k, g in single_grads.items():
+            scale = float(g.abs().max())
+            got = torch.from_numpy(fits[0]["grads"][0][k])
+            grad_err[k] = float((got - g).abs().max()) / scale if scale > 0 else float(
+                got.abs().max())
+        same = (fits[0]["losses"] == fits[1]["losses"]
+                and all(np.array_equal(a[k], b[k]) for a, b in zip(fits[0]["params"],
+                                                                   fits[1]["params"])
+                        for k in a))
+        check("sharded fit 1918x1081 2 ranks 2 steps",
+              same and all(np.isfinite(f["losses"]).all() for f in fits)
+              and all(e <= 1e-3 for e in grad_err.values())
+              and all(st["march"] > 0 for f in fits for st in f["launches"]),
+              dict(losses=fits[0]["losses"], grad_rel_err=grad_err,
+                   one_process_step=single_step,
+                   s_per_step={f["rank"]: [ms / 1e3 for ms in f["ms"]] for f in fits},
+                   peak_mem_gb={f["rank"]: f["peak_mem_gb"] for f in fits}))
+        rows_d = by_rank[0][2]
+        check("bench_scaling 1918x1081 1,2 ranks (2 ranks share one card: sharded-program "
+              "overhead, not scaling)",
+              [r["devices"] for r in rows_d] == [1, 2] and rows_d[0]["efficiency"] == 1.0
+              and rows_d == by_rank[1][2]
+              and all(np.isfinite(r["rays_per_s"]) and r["rays_per_s"] > 0 for r in rows_d),
+              dict(rows=rows_d))
+    phase9_s = time.perf_counter() - phase9_t0
+    check("phase 9 time", phase9_s <= 90.0, dict(s=phase9_s))
 
     if failures:
         _die("failed phases: " + ", ".join(failures))

@@ -3,7 +3,8 @@
 presets, ``render_tiled``'s checkpoints and retries (the cases of
 ``tests/test_io.py``), PNG and scene I/O between the two packages, the
 command line, the viewer (the cases of ``tests/test_viewer.py``),
-``frame_report`` and the port's entry point."""
+``frame_report``, the port's entry point and ``bench.parity_check``'s
+frame."""
 
 from __future__ import annotations
 
@@ -263,6 +264,28 @@ def test_scene_npz_roundtrips_between_packages(tmp_path):
     _assert_same_scene(tio.load_scene(by_port, "cpu"), tscene)
 
 
+def test_scene_to_state_matches_bhx():
+    """The port's scene_to_state gives bhx's snapshot (keys, arrays, the
+    mesh's fields and name), and scene_from_state reads it back."""
+    from bhx_torch.scene import scene_to_state as tscene_to_state
+
+    jscene = dataclasses.replace(small_scene(), meshes=(cube_mesh(),))
+    want = scene_to_state(jscene)
+    got = tscene_to_state(bhx_torch.scene_from_state(want, "cpu"))
+    assert set(got) == set(want) - {"materials"}
+    for part in ("camera", "black_hole"):
+        assert set(got[part]) == set(want[part])
+        for k, v in want[part].items():
+            np.testing.assert_array_equal(got[part][k], v, err_msg=k)
+    for k in ("time", "disk_gain", "disk_texture", "sky_texture", "temp_lut"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    (gm,), (wm,) = got["meshes"], want["meshes"]
+    assert set(gm) == set(wm)
+    for k, v in wm.items():
+        np.testing.assert_array_equal(gm[k], v, err_msg=k)
+    _assert_same_scene(bhx_torch.scene_from_state(got, "cpu"), jscene)
+
+
 def test_cli_assets_and_render(tmp_path, capsys):
     from bhx_torch.cli import main
 
@@ -365,3 +388,29 @@ def test_entry_renders():
     img = fn(*args)
     assert tuple(img.shape) == (72, 128, 3) and bool(torch.isfinite(img).all())
     assert 0.0 <= float(img.min()) and float(img.max()) <= 1.0
+
+
+def test_parity_check_frame_matches_bhx(monkeypatch):
+    """``bench.parity_check``'s frame (the default scene, dense, 600 march
+    iterations, no bloom, FXAA or tonemap), here at 64x36: the port's
+    plain pipeline within the gate's 2% of bhx's reference pipeline
+    (``bhx.bench.parity_check``'s ``march_mode="fast"``); the gate's
+    figures on the CPU against itself; and no card, no gate."""
+    from bhx.pipeline import render_jit
+    from bhx.scene import Scene as JaxScene
+
+    from bhx_torch import bench
+
+    r = bench.compare_frames(bhx_torch.Scene.default("cpu"), bench.parity_config(64, 36),
+                             2e-2, 0.02)
+    assert r == {"parity_bad_frac": 0.0, "parity_ok": True, "max_abs_err": 0.0}
+    cfg = jcfg.RenderConfig(width=64, height=36, use_ladder=False, max_iterations=600,
+                            fxaa=jcfg.FxaaConfig(enabled=False),
+                            bloom=jcfg.BloomConfig(enabled=False), tonemap=False,
+                            march_mode="fast")
+    want = np.asarray(render_jit(JaxScene.default(), cfg))
+    got = bhx_torch.render(bhx_torch.Scene.default("cpu"), torch_cfg(cfg)).numpy()
+    assert _bad_frac(got, want) <= 0.02
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.parity_check()

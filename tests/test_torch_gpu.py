@@ -2,7 +2,8 @@
 version on the card (the mesh kernel M1 in both branches, with active
 masks, and its one launch for all meshes with the merge inside), proof that CUDA tensors launch the kernels (with and without
 autograd, and with meshes in the scene), the card's frames against the
-CPU's, and the card's gradient against the CPU's.
+CPU's (and ``bench.parity_check``), the card's gradient against the CPU's,
+and the sharded trace over a world of one NCCL rank.
 Every test here is marked ``gpu`` and skips without a CUDA device.
 
 On a machine with a card (the root conftest.py imports jax, which such a
@@ -278,6 +279,41 @@ def test_small_frame_matches_cpu(frame):
     on_cpu = bhx_torch.render(scene.to("cpu"), cfg)
     bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
     assert bad <= 0.02, bad
+
+
+def test_parity_check(frame):
+    """bench.parity_check at its defaults: the card's 192x108 frame against
+    the CPU's plain one, at most 2% of pixels over 2e-2."""
+    from bhx_torch.bench import parity_check
+
+    r = parity_check()
+    assert r["parity_ok"], r
+
+
+def test_world_one_nccl_trace_sharded_bit_identical(frame):
+    """trace_image_sharded over a world of one NCCL rank (the gather runs)
+    equals the dense record bit for bit, and launches the march and the
+    composite."""
+    import torch.distributed as dist
+
+    from bhx_torch import parallel
+    from bhx_torch.tracer import trace_image_record
+
+    scene, _ = frame
+    cfg = bhx_torch.RenderConfig(use_ladder=False)
+    parallel.init_distributed(f"localhost:{parallel.free_port()}", 1, 0, "nccl")
+    try:
+        mesh = parallel.tile_mesh(device=scene.time.device)
+        assert mesh.group is not None and mesh.size == 1
+        reset_launch_counts()
+        got = parallel.trace_image_sharded(scene, cfg, mesh, 640, 361)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        dist.destroy_process_group()
+    want = trace_image_record(scene, cfg, 640, 361)
+    assert launches["march"] == 2 and launches["composite"] == 1, launches
+    assert float((got - want).abs().max()) == 0.0
 
 
 def test_small_frame_gradient_matches_cpu(frame):

@@ -276,6 +276,10 @@ def test_import_and_render_pull_in_no_jax():
         "params, losses = fit_scene(scene, img.detach(), cfg, steps=1)\n"
         "assert set(params) >= {'mass', 'cam_position'} and len(losses) == 1\n"
         "import bhx_torch.geometry.traverse, bhx_torch.geometry.native, bhx_torch.checks\n"
+        "import bhx_torch.physics, bhx_torch.entry\n"
+        "from bhx_torch.parallel import render_sharded\n"
+        "sharded = render_sharded(scene, cfg)\n"
+        "assert float((sharded - bhx_torch.render(scene, cfg)).abs().max()) <= 1e-6\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'bhx'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
