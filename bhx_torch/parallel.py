@@ -12,13 +12,16 @@
   one route.
 * **Inverse rendering.**  :func:`train_step` / :func:`fit_scene` fit the
   scene parameters by Adam on the L2 image loss.  Over more than one rank
-  each rank traces its own band under autograd (the march replay of the
-  backward is ~98% of a step), gathers the other bands detached, and runs
-  the sky, the post chain and the whole loss on the whole frame, as
-  ``render`` does; after ``backward`` the parameter gradients are summed
-  over the ranks (one ``all_reduce``).  No parameter reaches the post
-  chain, so the bands' gradients sum to the frame's.  Bloom and FXAA read
-  neighbours, so no rank computes a band-local loss.
+  each rank traces its own share of the rays under autograd (the march
+  replay of the backward is ~98% of a step), gathers the other shares
+  detached, and runs the sky, the post chain and the whole loss on the
+  whole frame, as ``render`` does; after ``backward`` the parameter
+  gradients are summed over the ranks (one ``all_reduce``).  Without the
+  ladder a share is a band of rows; with it (``cfg.use_ladder``, as
+  ``render``) each level's pixels to trace are dealt out over the ranks
+  (:func:`_sharded_ladder_rows`).  No parameter reaches the post chain,
+  so the shares' gradients sum to the frame's.  Bloom and FXAA read
+  neighbours, so no rank computes a share-local loss.
 * **Bring-up.**  :func:`tile_mesh` is this rank's view of a process group;
   :func:`init_distributed` joins one (torchrun's environment or explicit
   arguments); :func:`spawn` runs a function on n local ranks in processes
@@ -52,7 +55,9 @@ import torch.distributed as dist
 
 from bhx_torch import tracer
 from bhx_torch.config import RenderConfig
-from bhx_torch.pipeline import image_from_record, image_from_rows, render
+from bhx_torch.pipeline import (
+    _refine_masks, crop_ladder, image_from_record, image_from_rows, render,
+)
 from bhx_torch.scene import Scene, _device, scene_from_state
 
 # Seconds a collective, a rendezvous or a spawned world may take before it
@@ -300,6 +305,16 @@ def _check_device(scene: Scene, mesh: TileMesh) -> None:
                          f"{mesh.device}")
 
 
+def _gather_shares(mine: torch.Tensor, mesh: TileMesh) -> List[torch.Tensor]:
+    """Every rank's share (one shape on every rank), by rank: this rank's
+    ``mine`` itself, with its graph, the others detached copies."""
+    if mesh.group is None:
+        return [mine]
+    parts = _all_gather(mine, mesh)
+    parts[mesh.rank] = mine
+    return parts
+
+
 def _sharded_rows(scene: Scene, cfg: RenderConfig, mesh: TileMesh, width: int,
                   height: int) -> torch.Tensor:
     """The dense (8, height, width) sky-free record rows, each rank tracing
@@ -313,12 +328,79 @@ def _sharded_rows(scene: Scene, cfg: RenderConfig, mesh: TileMesh, width: int,
     rows = torch.clamp(rows, max=height - 1)
     mine = tracer.trace_rays_record_rows(o[rows].reshape(-1, 3), d[rows].reshape(-1, 3),
                                          scene, cfg)
-    if mesh.group is None:
-        parts = [mine]
-    else:
-        parts = _all_gather(mine, mesh)
-        parts[mesh.rank] = mine
-    return torch.cat(parts, dim=1).reshape(8, -1, width)[:, :height]
+    return torch.cat(_gather_shares(mine, mesh), dim=1).reshape(8, -1, width)[:, :height]
+
+
+def _ladder_share(n: int, rank: int, size: int, device=None) -> Tuple[torch.Tensor, int]:
+    """Rank ``rank``'s share of a ladder level's ``n`` pixels to trace
+    over ``size`` ranks: the positions ``rank, rank + size, ...`` in the
+    level's flat indices to trace, and how many of them are its own.  The
+    split is strided, so the shadow's long rays spread over every rank.
+    The positions are padded to ``ceil(n / size)`` by repeating one (the
+    last, or 0 for a rank with none), so every rank gathers one shape; the
+    padding is traced and dropped."""
+    pos = torch.arange(min(rank, n), n, size, device=device)
+    count = pos.numel()
+    pad = -(-n // size) - count
+    if pad:
+        pos = torch.cat([pos, pos.new_full((pad,), rank + (count - 1) * size if count else 0)])
+    return pos, count
+
+
+def _sharded_ladder_rows(scene: Scene, cfg: RenderConfig, mesh: TileMesh,
+                         levels: Optional[List[Dict]] = None) -> torch.Tensor:
+    """The ladder's (8, H, W) sky-free record at its final resolution on
+    every rank, equal to ``pipeline.ladder_trace_rows`` bit for bit.
+
+    Each level's pixels to trace (all of level 0's; then the re-trace mask
+    of the gathered coarser record, which every rank holds alike, so the
+    mask and the ``known`` record agree on every rank) are dealt out by
+    :func:`_ladder_share`; each rank traces its share, with no active
+    mask, and the shares are gathered and written into ``known`` at their
+    pixels (``index_copy``: the padding dropped, so no pixel is written,
+    nor its gradient counted, twice).  Under autograd this rank's share
+    carries the graph, the others are detached copies.  The mask's
+    indices cost one ``nonzero`` (a host sync) a level, which the
+    single-process ladder, tracing the whole level with the mask as its
+    active set, does not pay.
+
+    ``levels``, if given, receives one dict a level: its size, its pixels
+    to trace, this rank's own and padded share, and the ms (``_Clock``, a
+    sync a level) of this rank's trace."""
+    _check_device(scene, mesh)
+    lad = cfg.ladder_for_output()
+    clock = _Clock(mesh.device)
+    rows = None
+    for lvl in range(lad.levels):
+        w, h = lad.resolution(lvl)
+        if rows is None:
+            known = scene.time.new_zeros((8, w * h))
+            idx = torch.arange(w * h, device=mesh.device)
+        else:
+            needs, known = _refine_masks(rows, cfg, w, h)
+            known = known.reshape(8, -1)
+            idx = needs.reshape(-1).nonzero().squeeze(1)
+        n = idx.numel()
+        pos, count = _ladder_share(n, mesh.rank, mesh.size, idx.device)
+        ms = 0.0
+        if n:  # the masks agree, so every rank takes this branch alike
+            o, d = tracer.camera_rays(scene.camera, w, h)
+            mine_idx = idx[pos]
+            if levels is not None:
+                clock.start()
+            mine = tracer.trace_rays_record_rows(o.reshape(-1, 3)[mine_idx],
+                                                 d.reshape(-1, 3)[mine_idx], scene, cfg)
+            if levels is not None:
+                ms = clock.ms()
+            traced = torch.cat([p[:, :len(range(r, n, mesh.size))]
+                                for r, p in enumerate(_gather_shares(mine, mesh))], dim=1)
+            order = torch.cat([idx[r::mesh.size] for r in range(mesh.size)])
+            known = known.index_copy(1, order, traced)
+        if levels is not None:
+            levels.append(dict(level=lvl, width=w, height=h, retrace=n, traced=count,
+                               padded=pos.numel(), ms=ms))
+        rows = known.reshape(8, h, w)
+    return rows
 
 
 def trace_image_sharded(scene: Scene, cfg: RenderConfig, mesh: TileMesh, width: int,
@@ -441,17 +523,26 @@ def _sharded(mesh: Optional[TileMesh]) -> bool:
     return mesh is not None and mesh.size > 1
 
 
+def _step_image(scene: Scene, cfg: RenderConfig, mesh: Optional[TileMesh]) -> torch.Tensor:
+    """The (height, width, 3) frame that :func:`loss_fn` compares:
+    ``render``'s, its trace sharded over more than one rank of ``mesh``
+    (this rank's share under autograd), on the ladder when
+    ``cfg.use_ladder`` is set and densely by rows otherwise."""
+    if not _sharded(mesh):
+        return render(scene, cfg)
+    if cfg.use_ladder:
+        rows = crop_ladder(_sharded_ladder_rows(scene, cfg, mesh), cfg)
+    else:
+        rows = _sharded_rows(scene, cfg, mesh, cfg.width, cfg.height)
+    return image_from_rows(rows, scene, cfg)
+
+
 def loss_fn(params: Dict[str, torch.Tensor], scene: Scene, target: torch.Tensor,
             cfg: RenderConfig, mesh: Optional[TileMesh] = None) -> torch.Tensor:
     """The mean squared difference between the frame under ``params`` and
     ``target`` ((height, width, 3)).  Over more than one rank the frame's
-    trace is tile-sharded, this rank's band under autograd (dense)."""
-    scene = apply_params(scene, params)
-    if _sharded(mesh):
-        img = image_from_rows(_sharded_rows(scene, cfg, mesh, cfg.width, cfg.height),
-                              scene, cfg)
-    else:
-        img = render(scene, cfg)
+    trace is sharded, this rank's share under autograd."""
+    img = _step_image(apply_params(scene, params), cfg, mesh)
     return torch.mean((img - target) ** 2)
 
 
@@ -463,15 +554,18 @@ def train_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer
     loss before the update.  Over more than one rank of ``mesh`` every
     rank computes the same loss, the gradients are summed over the ranks
     before the update, and the parameters stay equal on every rank; the
-    trace is dense there, and ``cfg.use_ladder`` raises ``ValueError``."""
-    if _sharded(mesh) and cfg.use_ladder:
-        raise ValueError("the sharded train step traces densely: set use_ladder=False "
-                         "(the ladder is not sharded)")
+    trace follows ``cfg.use_ladder`` as ``render`` does (:func:`_step_image`)."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(params, scene, target, cfg, mesh)
     loss.backward()
     if _sharded(mesh):
-        # Every rank runs one graph, so the same parameters have gradients.
+        # One sum is the frame's gradient, on the ladder too: every path
+        # from a parameter to the loss runs through exactly one traced ray,
+        # which exactly one rank owns (the others hold it detached); a
+        # level's ``known`` record depends only on the coarser record, whose
+        # rays are owned alike; the re-trace masks carry no gradient, and no
+        # parameter reaches the sky or the post chain.  Every rank runs one
+        # graph, so the same parameters have gradients.
         have = [p for p in params.values() if p.grad is not None]
         summed = _all_reduce(torch.cat([p.grad.reshape(-1) for p in have]), mesh)
         for p, g in zip(have, summed.split([p.numel() for p in have])):
@@ -561,6 +655,31 @@ def frame_job(mesh: TileMesh, state: Mapping, cfg: RenderConfig) -> Dict:
                 device_name=(torch.cuda.get_device_name(mesh.device)
                              if mesh.device.type == "cuda" else "cpu"),
                 ms=ms, launches=launches, image=image, record=record)
+
+
+def ladder_job(mesh: TileMesh, state: Mapping, cfg: RenderConfig) -> Dict:
+    """The sharded ladder of the scene ``state`` on this rank (as the
+    sharded train step traces it, under no autograd): on the card one
+    frame first to build the kernels and warm up; then ``record``, the
+    uncropped (8, H, W) ladder record, with each level's pixels to
+    trace, this rank's share and its trace's ms (``levels``); then the
+    step's frame (``image``, :func:`_step_image`) with the kernel launches
+    of that frame alone (``launches``)."""
+    from bhx_torch.kernels import launch_counts, reset_launch_counts
+
+    scene = scene_from_state(state, mesh.device)
+    with torch.no_grad():
+        if mesh.device.type == "cuda":
+            _step_image(scene, cfg, mesh)
+            _sync(mesh.device)
+        levels: List[Dict] = []
+        record = _sharded_ladder_rows(scene, cfg, mesh, levels)
+        reset_launch_counts()
+        image = _step_image(scene, cfg, mesh)
+        _sync(mesh.device)
+        launches = launch_counts()
+    return dict(rank=mesh.rank, world=mesh.size, device=str(mesh.device), levels=levels,
+                record=record, image=image, launches=launches)
 
 
 def fit_job(mesh: TileMesh, state: Mapping, target: np.ndarray, cfg: RenderConfig,

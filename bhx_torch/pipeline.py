@@ -167,16 +167,20 @@ def final_level_retrace_mask(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     return needs.reshape(-1)
 
 
+def crop_ladder(rows: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """The (8, height, width) center crop of a ladder record at the
+    ladder's final resolution: the ladder overshoots the requested output."""
+    lw, lh = cfg.ladder_for_output().final_resolution
+    x0 = (lw - cfg.width) // 2
+    y0 = (lh - cfg.height) // 2
+    return rows[:, y0:y0 + cfg.height, x0:x0 + cfg.width]
+
+
 def render(scene: Scene, cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
     """Render the scene to a (height, width, 3) float32 image in [0, 1], on
     the scene's device."""
     if cfg.use_ladder:
-        rows = ladder_trace_rows(scene, cfg)
-        lw, lh = cfg.ladder_for_output().final_resolution
-        # Center-crop the ladder overshoot down to the requested output.
-        x0 = (lw - cfg.width) // 2
-        y0 = (lh - cfg.height) // 2
-        rows = rows[:, y0:y0 + cfg.height, x0:x0 + cfg.width]
+        rows = crop_ladder(ladder_trace_rows(scene, cfg), cfg)
     else:
         rows = trace_image_record_rows(scene, cfg, cfg.width, cfg.height)
 

@@ -54,6 +54,14 @@ REC_ALPHA = 3
 REC_AMOUNT = 4
 REC_DIR = slice(5, 8)
 
+# On the CPU, torch runs a binary transcendental op (atan2, pow) on the last
+# N mod 32 elements of a batch (N mod 16 under AVX2) with scalar libm, an ulp
+# apart from its vector math.  A CPU trace pads its batch to a multiple of
+# CPU_BATCH_ALIGN rays, so a ray's record does not depend on the batch it is
+# traced in (a band, a ladder level, a rank's share).  The array composite
+# shades a compacted batch of valid slots, which this does not cover.
+CPU_BATCH_ALIGN = 64
+
 # Profiler ranges of the array-texture stages, which are plain torch
 # (``bench.frame_profile`` reads the device time of the kernels they launch).
 ARRAY_COMPOSITE = "bhx_torch.array_composite"
@@ -392,6 +400,13 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
 
     ``active`` (optional bool (N,)): rays with False are dead lanes that
     produce an escape record; the march kernel skips them."""
+    n = origins.shape[0]
+    pad = -n % CPU_BATCH_ALIGN if origins.device.type == "cpu" else 0
+    if pad:  # dead lanes, cut off below
+        origins = torch.cat([origins, origins[-1:].expand(pad, 3)])
+        directions = torch.cat([directions, directions[-1:].expand(pad, 3)])
+        live = torch.ones(n, dtype=torch.bool) if active is None else active
+        active = torch.cat([live, torch.zeros(pad, dtype=torch.bool)])
     bh = scene.black_hole
     state = _init_state(origins, directions)
     if active is not None:
@@ -414,7 +429,7 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
     return torch.cat([
         shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
         torch.stack([state["dx"], state["dy"], state["dz"]]),
-    ])
+    ])[:, :n]
 
 
 def march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,

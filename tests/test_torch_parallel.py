@@ -1,12 +1,14 @@
 """bhx_torch.parallel on the CPU: bring-up, the tile-sharded trace and
-render, the sharded train step, bench_scaling, ``render --sharded`` under
-torchrun and ``dryrun_multichip``, over 2 and 4 gloo ranks spawned in
-processes of their own, against the port's dense single-process path and
-against bhx.parallel on the 8-device CPU mesh.  Inputs are
-``small_scene()`` through ``scene_from_state``.
+render, the sharded ladder, the sharded train step (dense and on the
+ladder), bench_scaling, ``render --sharded`` under torchrun and
+``dryrun_multichip``, over 2 and 4 gloo ranks spawned in processes of
+their own, against the port's single-process path, against bhx.parallel on
+the 8-device CPU mesh and against the reference's ladder golden.  Inputs
+are ``small_scene()`` through ``scene_from_state``.
 
-Each spawned world has its own timeout and kills its ranks; one world of 2
-ranks and one of 4 run every job of their size once (module fixtures)."""
+Each spawned world has its own timeout and kills its ranks; two worlds of
+2 ranks (dense, ladder) and one of 4 run every job of their size once (a
+module fixture)."""
 
 from __future__ import annotations
 
@@ -30,11 +32,12 @@ from bhx.scene import scene_to_state
 import bhx_torch
 from bhx_torch import parallel as tpar
 from bhx_torch import tracer as ttracer
+from bhx_torch.pipeline import ladder_trace_rows
 
 from tests import torch_rank_programs as progs
-from tests.common import FAST_CFG, cube_mesh, outside_camera, small_scene
+from tests.common import FAST_CFG, LADDER_CFG, cube_mesh, outside_camera, small_scene
 from tests.test_torch_api import _parity
-from tests.test_torch_pipeline import REPO, _bad_frac, torch_cfg
+from tests.test_torch_pipeline import LADDER_POST_CFG, REPO, _bad_frac, torch_cfg
 
 torch.set_num_threads(2)
 
@@ -47,13 +50,23 @@ TRACE_CASES = [(2, 48, 40, False), (2, 48, 37, False), (4, 48, 40, False), (4, 4
 POST_CFG = dataclasses.replace(FAST_CFG, width=48, height=40, tonemap=True,
                                bloom=jcfg.BloomConfig(enabled=True),
                                fxaa=jcfg.FxaaConfig(enabled=True))
-# The sharded train step: test_dist.py's size and march budget.
+# Sharded ladder cases: (world size, width, height, with the cube).  The
+# first renders at LADDER_POST_CFG, whose frame the golden holds; 85x58 is
+# a 91x64 ladder from 11x8, whose 594 and 5142 pixels to re-trace do not
+# divide by 4.
+LADDER_CASES = [(2, 85, 49, False), (2, 85, 49, True), (4, 85, 49, False), (4, 85, 58, True)]
+# The sharded train step: test_dist.py's size and march budget; the ladder
+# steps on a 2-level ladder, 12x6 to 34x16.
 TRAIN_STEPS, TRAIN_LR = 5, 5e-3
+_TRAIN_BASE = dataclasses.replace(FAST_CFG, width=32, height=16, max_iterations=60)
+_POST_ON = dict(tonemap=True, bloom=jcfg.BloomConfig(enabled=True),
+                fxaa=jcfg.FxaaConfig(enabled=True))
+_LADDER = dict(use_ladder=True, ladder=jcfg.LadderConfig(base=(12, 6), multiplier=3, levels=2))
 TRAIN_CFGS = {
-    "post_off": dataclasses.replace(FAST_CFG, width=32, height=16, max_iterations=60),
-    "post_on": dataclasses.replace(FAST_CFG, width=32, height=16, max_iterations=60,
-                                   tonemap=True, bloom=jcfg.BloomConfig(enabled=True),
-                                   fxaa=jcfg.FxaaConfig(enabled=True)),
+    "post_off": _TRAIN_BASE,
+    "post_on": dataclasses.replace(_TRAIN_BASE, **_POST_ON),
+    "ladder_post_off": dataclasses.replace(_TRAIN_BASE, **_LADDER),
+    "ladder_post_on": dataclasses.replace(_TRAIN_BASE, **_LADDER, **_POST_ON),
 }
 
 
@@ -66,6 +79,12 @@ def _jax_scene(cube: bool):
 
 def _case_cfg(w: int, h: int):
     return dataclasses.replace(FAST_CFG, width=w, height=h)
+
+
+def _ladder_cfg(case):
+    _, w, h, _ = case
+    base = LADDER_POST_CFG if case == LADDER_CASES[0] else LADDER_CFG
+    return torch_cfg(dataclasses.replace(base, width=w, height=h))
 
 
 def _state(cube: bool = False):
@@ -94,31 +113,37 @@ def _keyed(by_rank, keys):
 
 @pytest.fixture(scope="module")
 def worlds():
-    """One world of 2 ranks and one of 4, spawned at once from two threads,
-    while this process computes the references: bhx.parallel's records and
-    post-chain frame on the 8-device mesh and the port's dense records.
+    """Three worlds, spawned at once from three threads, while this process
+    computes the references: bhx.parallel's records and post-chain frame
+    on the 8-device mesh, the port's dense records and frames and its
+    single-process ladder records.
 
-    The 2-rank world runs its trace cases, the post-chain frame, the train
-    step with the post chain off and on, bench_scaling over [1, 2], and
-    last lists the jax / bhx modules each rank had imported; the 4-rank
-    world runs its trace cases."""
-    two_keys = [c for c in TRACE_CASES if c[0] == 2] + ["post"]
-    two_jobs = [(tpar.frame_job, (_state(cube), torch_cfg(_case_cfg(w, h))))
-                for _, w, h, cube in two_keys[:-1]]
-    two_jobs.append((tpar.frame_job, (_state(), torch_cfg(POST_CFG))))
+    A world of 2 ranks runs its trace cases, the post-chain frame, the
+    frame with ``use_ladder`` set, the dense train step with the post chain
+    off and on, bench_scaling over [1, 2], and last lists the jax / bhx
+    modules each rank had imported; a second world of 2 ranks runs the
+    2-rank ladder cases and the train step on the ladder; the world of 4
+    ranks runs its trace and ladder cases."""
+    two = [(c, tpar.frame_job, (_state(c[3]), torch_cfg(_case_cfg(*c[1:3]))))
+           for c in TRACE_CASES if c[0] == 2]
+    two += [("post", tpar.frame_job, (_state(), torch_cfg(POST_CFG))),
+            ("ladder_flag", tpar.frame_job,
+             (_state(), torch_cfg(_case_cfg(48, 40)).replace(use_ladder=True)))]
+    ladder = [(("ladder",) + c, tpar.ladder_job, (_state(c[3]), _ladder_cfg(c)))
+              for c in LADDER_CASES if c[0] == 2]
     for name, cfg in TRAIN_CFGS.items():
-        two_keys.append(name)
-        two_jobs.append((tpar.fit_job, (_state(), _train_target(torch_cfg(cfg)), torch_cfg(cfg),
-                                        TRAIN_STEPS, TRAIN_LR)))
-    two_keys += ["bench", "modules"]
-    two_jobs += [(tpar.bench_job, (_state(), torch_cfg(_case_cfg(32, 16)), [1, 2], 2)),
-                 (progs.foreign_modules, ())]
-    four_keys = [c for c in TRACE_CASES if c[0] == 4]
-    four_jobs = [(tpar.frame_job, (_state(cube), torch_cfg(_case_cfg(w, h))))
-                 for _, w, h, cube in four_keys]
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        two = pool.submit(_spawn, two_jobs, 2)
-        four = pool.submit(_spawn, four_jobs, 4)
+        job = (name, tpar.fit_job, (_state(), _train_target(torch_cfg(cfg)), torch_cfg(cfg),
+                                    TRAIN_STEPS, TRAIN_LR))
+        (ladder if cfg.use_ladder else two).append(job)
+    two += [("bench", tpar.bench_job, (_state(), torch_cfg(_case_cfg(32, 16)), [1, 2], 2)),
+            ("modules", progs.foreign_modules, ())]
+    four = [(c, tpar.frame_job, (_state(c[3]), torch_cfg(_case_cfg(*c[1:3]))))
+            for c in TRACE_CASES if c[0] == 4]
+    four += [(("ladder",) + c, tpar.ladder_job, (_state(c[3]), _ladder_cfg(c)))
+             for c in LADDER_CASES if c[0] == 4]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        spawned = [(keyed, pool.submit(_spawn, [(fn, args) for _, fn, args in keyed], n))
+                   for keyed, n in ((two, 2), (ladder, 2), (four, 4))]
         mesh8 = jpar.tile_mesh(jax.devices()[:8])
         out = dict(
             bhx={(w, h, cube): np.asarray(jpar.trace_image_sharded(
@@ -128,9 +153,12 @@ def worlds():
             dense={(w, h, cube): ttracer.trace_image_record(
                 _tscene(cube), torch_cfg(_case_cfg(w, h)), w, h).numpy()
                 for _, w, h, cube in TRACE_CASES},
-            dense_post=bhx_torch.render(_tscene(), torch_cfg(POST_CFG)).numpy())
-        out.update(_keyed(two.result(), two_keys))
-        out.update(_keyed(four.result(), four_keys))
+            dense_post=bhx_torch.render(_tscene(), torch_cfg(POST_CFG)).numpy(),
+            dense_48x40=bhx_torch.render(_tscene(), torch_cfg(_case_cfg(48, 40))).numpy(),
+            ladder={case: ladder_trace_rows(_tscene(case[3]), _ladder_cfg(case)).numpy()
+                    for case in LADDER_CASES})
+        for keyed, future in spawned:
+            out.update(_keyed(future.result(), [key for key, _, _ in keyed]))
     return out
 
 
@@ -285,8 +313,70 @@ def test_render_sharded_matches_bhx(worlds):
         assert bad <= 0.02, f"rank {r['rank']}: {bad:.2%} pixels differ by more than 2e-2"
 
 
+def test_render_sharded_stays_dense_with_the_ladder_flag(worlds):
+    """trace_image_sharded and render_sharded are dense whatever
+    ``use_ladder`` says, as bhx's are."""
+    for r in worlds["ladder_flag"]:
+        assert float(np.abs(r["record"] - worlds["dense"][(48, 40, False)]).max()) <= 1e-6
+        assert float(np.abs(r["image"] - worlds["dense_48x40"]).max()) <= 1e-6, r["rank"]
+
+
 def test_ranks_load_no_jax_or_bhx(worlds):
     assert worlds["modules"] == [[], []]
+
+
+# --- the sharded ladder ---
+
+LADDER_IDS = [f"{n}ranks-{w}x{h}{'-cube' if c else ''}" for n, w, h, c in LADDER_CASES]
+
+
+@pytest.mark.parametrize("n", [0, 3, 10, 12])
+def test_ladder_share_covers_each_pixel_once(n):
+    """Every rank's share has ceil(n / size) positions, its own first;
+    the own positions of all ranks are 0 .. n-1, each once; the counts
+    differ by at most one."""
+    size = 4
+    shares = [tpar._ladder_share(n, r, size) for r in range(size)]
+    assert all(len(pos) == -(-n // size) for pos, _ in shares)
+    own = torch.cat([pos[:count] for pos, count in shares])
+    assert sorted(own.tolist()) == list(range(n))
+    counts = [count for _, count in shares]
+    assert max(counts) - min(counts) <= (1 if n else 0)
+    assert all(0 <= int(p) < n for pos, _ in shares for p in pos)
+
+
+@pytest.mark.parametrize("case", LADDER_CASES, ids=LADDER_IDS)
+def test_sharded_ladder_equals_single_process(case, worlds):
+    want = worlds["ladder"][case]
+    for r in worlds[("ladder",) + case]:
+        assert r["record"].shape == want.shape
+        assert float(np.abs(r["record"] - want).max()) == 0.0, r["rank"]
+
+
+@pytest.mark.parametrize("case", LADDER_CASES, ids=LADDER_IDS)
+def test_sharded_ladder_split_by_pixels_to_retrace(case, worlds):
+    """On each level the ranks trace shares that differ by at most one
+    ray, pad to one shape, and cover the level's pixels to trace (all of
+    level 0's, then its re-trace mask's)."""
+    ranks = worlds[("ladder",) + case]
+    for lvl, level in enumerate(ranks[0]["levels"]):
+        mine = [r["levels"][lvl] for r in ranks]
+        assert all(m["retrace"] == level["retrace"] for m in mine)
+        traced = [m["traced"] for m in mine]
+        assert sum(traced) == level["retrace"], (lvl, traced)
+        assert max(traced) - min(traced) <= 1, (lvl, traced)
+        assert len({m["padded"] for m in mine}) == 1
+    if case[2] == 58:
+        assert any(level["retrace"] % 4 for level in ranks[0]["levels"][1:])
+
+
+def test_sharded_ladder_frame_matches_golden(worlds):
+    """The frame the sharded ladder step renders at LADDER_POST_CFG, on
+    each rank, against the reference's ladder golden."""
+    want = np.load(os.path.join(REPO, "tests", "golden", "ladder_post.npz"))["img"]
+    for r in worlds[("ladder",) + LADDER_CASES[0]]:
+        bad = _bad_frac(r["image"], want.astype(np.float32))
+        assert bad <= 0.02, f"rank {r['rank']}: {bad:.2%} pixels differ by more than 2e-2"
 
 
 # --- the sharded train step ---
@@ -332,16 +422,6 @@ def test_sharded_step_loss_falls(worlds, name):
     losses = worlds[name][0]["losses"]
     assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
     assert losses[-1] < losses[0], losses
-
-
-def test_sharded_step_with_ladder_raises():
-    mesh = tpar.TileMesh(None, 0, 2, torch.device("cpu"))
-    scene = _tscene()
-    params = {k: v.detach().clone().requires_grad_() for k, v in tpar.scene_params(scene).items()}
-    cfg = torch_cfg(TRAIN_CFGS["post_off"]).replace(use_ladder=True)
-    with pytest.raises(ValueError, match="use_ladder"):
-        tpar.train_step(params, tpar.make_optimizer(params), scene,
-                        torch.zeros(16, 32, 3), cfg, mesh)
 
 
 # --- bench_scaling ---
