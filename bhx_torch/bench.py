@@ -120,7 +120,8 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
     ms of the march, composite, sky and mesh kernels (by name), and the
     device ms of the kernels launched inside the array-texture stages
     (``tracer.ARRAY_COMPOSITE`` and ``tracer.ARRAY_SKY``, plain torch: the
-    kernels of the ops inside each host range)."""
+    kernels of the ops inside each host range), and the number of frames it
+    rendered (``frames``: the warm-up, the timed and the profiled ones)."""
     from torch.profiler import ProfilerActivity, profile
 
     render(scene, cfg)
@@ -160,7 +161,7 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
         return total / iters / 1e3
 
     device_ms = busy_ms()
-    return dict(frame_ms=frame_ms, device_ms=device_ms,
+    return dict(frames=1 + 2 * iters, frame_ms=frame_ms, device_ms=device_ms,
                 idle_frac=1.0 - device_ms / frame_ms,
                 device_events=len(kernels) / iters,
                 # Kernel names: march_*, shade_composite_kernel,
@@ -224,15 +225,31 @@ def fd_stable(scene: Scene, cfg: RenderConfig, names) -> np.ndarray:
     base = scene_params(scene)
     stable = np.ones((cfg.height, cfg.width, 3), bool)
     for n in names:
-        x0 = base[n]
-        for c in range(x0.numel()):
-            unit = torch.zeros(x0.numel(), dtype=x0.dtype, device=x0.device)
-            unit[c] = 1.0
+        stable &= _stable_along(
+            lambda x: render(apply_params(scene, dict(base, **{n: x})), cfg), base[n])
+    return stable
 
-            def img_of(x):
-                return render(apply_params(scene, dict(base, **{n: x})), cfg)
 
-            stable &= _fd_agree(_fd_images(img_of, x0, unit.reshape(x0.shape)))
+def pose_fd_stable(scene: Scene, cfg: RenderConfig, angles: torch.Tensor) -> np.ndarray:
+    """:func:`fd_stable` along the yaw and along the pitch of
+    ``scene.camera.rotated(*angles)`` (``angles``: (yaw, pitch))."""
+    return _stable_along(lambda a: render(rotated(scene, a), cfg), angles)
+
+
+def rotated(scene: Scene, angles: torch.Tensor) -> Scene:
+    """``scene`` with its camera ``rotated(yaw, pitch)``, ``angles`` = (yaw,
+    pitch) (a tensor that requires grad keeps its graph)."""
+    return dataclasses.replace(scene, camera=scene.camera.rotated(angles[0], angles[1]))
+
+
+def _stable_along(img_of, x0: torch.Tensor) -> np.ndarray:
+    """The pixels of ``img_of`` whose central differences at the two
+    FD_STEPS agree along every component of ``x0``."""
+    stable = True
+    for c in range(x0.numel()):
+        unit = torch.zeros(x0.numel(), dtype=x0.dtype, device=x0.device)
+        unit[c] = 1.0
+        stable = stable & _fd_agree(_fd_images(img_of, x0, unit.reshape(x0.shape)))
     return stable
 
 

@@ -17,7 +17,8 @@ Tolerances:
   operation);
 * the render's gradient on the card against the CPU's
   (:func:`compare_gradients`): every parameter within 1e-3 of its
-  largest entry.
+  largest entry; so d/d(yaw, pitch) of a render through
+  ``Camera.rotated`` (:func:`compare_pose_gradients`).
 
 Each ``compare_*`` returns a dict with ``ok``, the error figures, and the
 kernel's and the plain version's milliseconds per call (CUDA events; the
@@ -45,7 +46,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from bhx_torch.bench import fd_stable
+from bhx_torch.bench import fd_stable, pose_fd_stable, rotated
 from bhx_torch.config import RenderConfig
 from bhx_torch.geometry import traverse
 from bhx_torch.kernels import march as march_mod
@@ -384,6 +385,38 @@ def compare_gradients(scene: Scene, cfg: RenderConfig, seed: int = 7) -> Dict:
     worst = max(rel, key=rel.get)
     return dict(kept_frac=float(keep.mean()), max_rel_err=rel[worst], worst=worst,
                 rel_err=rel, ok=finite and rel[worst] < GRAD_REL)
+
+
+def compare_pose_gradients(scene: Scene, cfg: RenderConfig, yaw: float, pitch: float,
+                           seed: int = 7) -> Dict:
+    """d/d(yaw, pitch) of ``sum(w * render(scene', cfg))``, where ``scene'``
+    has ``scene.camera.rotated(yaw, pitch)``: on the card (the kernels'
+    forward, their replayed backward) against the plain path on the CPU.
+    ``scene`` lies on the card.  ``w`` is ``default_rng(seed)`` uniform,
+    zero off the pixels that are FD-stable along yaw and along pitch
+    (``bench.pose_fd_stable``) and where the two forwards part by more than
+    GRAD_FWD_ATOL, as in :func:`compare_gradients`.  ``ok``: the card's
+    gradient finite and within GRAD_REL of the CPU's larger entry."""
+    angles = torch.tensor([yaw, pitch], dtype=torch.float32, device=scene.time.device)
+    # Each device's angles, a leaf, and its image, the graph kept for the
+    # backward once the weights are known.
+    runs = []
+    for s in (scene, scene.to("cpu")):
+        a = angles.to(s.time.device, copy=True).requires_grad_()
+        runs.append((a, render(rotated(s, a), cfg)))
+    (_, on_card), (_, on_cpu) = runs
+    fwd_err = (on_card.detach().cpu() - on_cpu.detach()).abs().numpy()
+    keep = (pose_fd_stable(scene, cfg, angles)
+            & (fwd_err <= GRAD_FWD_ATOL).all(-1, keepdims=True))
+    weights = np.random.default_rng(seed).random((cfg.height, cfg.width, 3)) * keep
+    card_g, cpu_g = (
+        torch.autograd.grad((img * torch.as_tensor(weights, dtype=img.dtype,
+                                                   device=img.device)).sum(), a)[0].cpu()
+        for a, img in runs)
+    rel = float((card_g - cpu_g).abs().max() / cpu_g.abs().max())
+    return dict(kept_frac=float(keep.mean()), grad_card=card_g.tolist(),
+                grad_cpu=cpu_g.tolist(), rel_err=rel,
+                ok=bool(torch.isfinite(card_g).all()) and rel < GRAD_REL)
 
 
 def last_level_rays(scene: Scene, cfg: RenderConfig):

@@ -74,8 +74,7 @@ def _build_scene(args, device=None):
     )
     cam = dataclasses.replace(scene.camera, position=f32(args.camera), fov=f32(args.fov))
     if args.look_at is not None:
-        fwd = f32(args.look_at) - cam.position
-        cam = dataclasses.replace(cam, forward=fwd / torch.linalg.vector_norm(fwd))
+        cam = cam.look_at(args.look_at)
     return dataclasses.replace(scene, camera=cam, black_hole=bh, time=f32(args.time))
 
 

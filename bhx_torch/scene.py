@@ -81,6 +81,37 @@ class Camera(_TensorData):
             fov=_f32(1.0, device),
         )
 
+    def _as(self, x) -> torch.Tensor:
+        # A tensor argument keeps its autograd graph.
+        return torch.as_tensor(x, dtype=torch.float32, device=self.position.device)
+
+    def look_at(self, target) -> "Camera":
+        fwd = self._as(target) - self.position
+        return dataclasses.replace(self, forward=fwd / torch.linalg.vector_norm(fwd))
+
+    def right(self) -> torch.Tensor:
+        """normalize(forward x (0,-1,0)) — reference camera.rs:54-57."""
+        r = torch.linalg.cross(self.forward, const((0.0, -1.0, 0.0), self.position.device))
+        return r / torch.linalg.vector_norm(r)
+
+    def rotated(self, yaw, pitch) -> "Camera":
+        """Yaw about world +y then pitch about the current right axis
+        (reference rotate_camera, camera.rs:26-35)."""
+
+        def axis_rot(v, axis, angle):
+            axis = axis / torch.linalg.vector_norm(axis)
+            c, s = torch.cos(angle), torch.sin(angle)
+            return (
+                v * c
+                + torch.linalg.cross(axis, v) * s
+                + axis * torch.dot(axis, v) * (1.0 - c)
+            )
+
+        fwd = axis_rot(self.forward, const((0.0, 1.0, 0.0), self.position.device),
+                       self._as(yaw))
+        fwd = axis_rot(fwd, self.right(), self._as(pitch))
+        return dataclasses.replace(self, forward=fwd)
+
 
 @dataclasses.dataclass
 class BlackHole(_TensorData):

@@ -134,7 +134,21 @@ Phases, each printed as it finishes:
    step's summed gradients within 1e-3 (of each parameter's largest entry)
    of one single-process ladder step on the same inputs, each step
    launching the kernels as the frame does; s/step and peak memory of
-   both beside 9c's dense single-process step; the phase within 150 s.
+   both beside 9c's dense single-process step; the phase within 150 s;
+10. the camera's pose on the card: (10a) ``Camera.rotated(0.35, -0.15)``
+   of the default camera, and a camera at (6, -2, -18) that
+   ``look_at``s the hole: forward and ``right()`` on the card within 2e-6
+   of the same calls on the CPU, every tensor on the card; (10b) the
+   default 1918x1081 ladder frame of the rotated scene through
+   ``bench.frame_profile`` (ms a frame, device-busy ms, idle share, the
+   kernels' ms), each of its frames launching march, composite and sky
+   as phase 4's frame does, and nothing else, beside the card's name and
+   power limit; (10c) its 192x108 frame on the card against the plain
+   path on the CPU (2% bad pixels at 2e-2); (10d) d/d(yaw, pitch) of a
+   weighted-pixel loss at 320x180 through ``rotated``, the card against
+   the CPU within 1e-3 of the larger entry
+   (``checks.compare_pose_gradients``), the kernels launched and
+   replayed; the phase within 60 s.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches in the frames of phase 4, of phase 7 for ``mesh`` and of phase
@@ -872,6 +886,72 @@ def main() -> int:
     phase9e_s = time.perf_counter() - phase9e_t0
     # 76.7 s in its first run on one H100 (700 W); twice that with headroom.
     check("phase 9e time", phase9e_s <= 150.0, dict(s=phase9e_s))
+
+    # --- 10. the camera's pose on the card ---
+    phase10_t0 = time.perf_counter()
+    base = Scene.default(dev)
+    rot_scene = dataclasses.replace(base, camera=base.camera.rotated(0.35, -0.15))
+    eye = (6.0, -2.0, -18.0)
+    look_cam = dataclasses.replace(base.camera, position=torch.tensor(eye, device=dev))
+    cpu_cam = base.camera.to("cpu")
+    # 10a. the pose methods on the card against the same calls on the CPU.
+    poses = {
+        "rotated": (rot_scene.camera, cpu_cam.rotated(0.35, -0.15)),
+        "look_at": (look_cam.look_at((0.0, 0.0, 0.0)),
+                    dataclasses.replace(cpu_cam, position=torch.tensor(eye))
+                    .look_at((0.0, 0.0, 0.0))),
+    }
+    pose_err, on_card, forwards = {}, True, {}
+    for name, (card_cam, cpu_pose) in poses.items():
+        forwards[name] = card_cam.forward.tolist()
+        for part, got, want in (("forward", card_cam.forward, cpu_pose.forward),
+                                ("right", card_cam.right(), cpu_pose.right())):
+            on_card = on_card and got.device.type == "cuda"
+            pose_err[f"{name} {part}"] = float((got.cpu() - want).abs().max())
+    check("pose card vs cpu", on_card and max(pose_err.values()) <= 2e-6,
+          dict(max_abs_err=pose_err, gate=2e-6, forward=forwards))
+
+    # 10b. the rotated scene's default frame: every frame that frame_profile
+    # renders launches what phase 4's frame launches.
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    reset_launch_counts()
+    prof = frame_profile(rot_scene, RenderConfig())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    path = ("march", "composite", "sky")
+    counts_ok = all(counts[k] == prof["frames"] * euler["launches_per_frame"][k]
+                    and (counts[k] > 0) == (k in path) for k in counts)
+    with torch.no_grad():
+        img = render(rot_scene, RenderConfig())
+        unposed = render(base, RenderConfig())
+    moved = float((img - unposed).abs().gt(2e-2).any(-1).float().mean())
+    check("frame 1918x1081 rotated", counts_ok and bool(torch.isfinite(img).all())
+          and tuple(img.shape) == (1081, 1918, 3) and moved >= 0.2,
+          dict(prof, launches=counts,
+               launches_per_frame={k: v / prof["frames"] for k, v in counts.items()},
+               phase4_launches_per_frame=euler["launches_per_frame"],
+               changed_frac=moved, card=card))
+
+    # 10c. card against CPU.
+    r = compare_frames(rot_scene, parity_config(192, 108), 2e-2, 0.02)
+    check("frame 192x108 card vs cpu rotated", r["parity_ok"], dict(r, gate=0.02))
+
+    # 10d. d/d(yaw, pitch) through rotated, card against CPU.
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = checks.compare_pose_gradients(base, grad_cfg.replace(width=320, height=180),
+                                      0.35, -0.15)
+    r["s"] = time.perf_counter() - t0
+    pose_launches, pose_replays = launch_counts(), replay_counts()
+    check("grad 320x180 card vs cpu yaw, pitch",
+          r["ok"] and r["kept_frac"] > 0.3 and all(pose_launches[k] > 0 for k in path)
+          and all(pose_replays[k] > 0 for k in path),
+          dict(r, gate=checks.GRAD_REL, launches=pose_launches, replays=pose_replays))
+    phase10_s = time.perf_counter() - phase10_t0
+    check("phase 10 time", phase10_s <= 60.0, dict(s=phase10_s))
 
     if failures:
         _die("failed phases: " + ", ".join(failures))

@@ -299,6 +299,29 @@ def test_cli_assets_and_render(tmp_path, capsys):
     assert img.shape == (18, 32, 3) and img.max() > 0.0
 
 
+def test_cli_look_at_is_camera_look_at():
+    """``--look-at`` gives the forward of ``Camera.look_at`` from the
+    ``--camera`` position, and bhx's camera gives the same."""
+    import argparse
+
+    from bhx.scene import Camera as JaxCamera
+
+    from bhx_torch.cli import _add_scene_flags, _build_scene
+
+    p = argparse.ArgumentParser()
+    _add_scene_flags(p)
+    args = p.parse_args(["--device", "cpu", "--camera", "6", "-2", "-18",
+                         "--look-at", "1", "0.5", "0"])
+    cam = _build_scene(args).camera
+    want = dataclasses.replace(bhx_torch.Camera.default("cpu"),
+                               position=torch.tensor([6.0, -2.0, -18.0])).look_at([1.0, 0.5, 0.0])
+    torch.testing.assert_close(cam.forward, want.forward, atol=0, rtol=0)
+    torch.testing.assert_close(cam.position, want.position, atol=0, rtol=0)
+    jcam = dataclasses.replace(JaxCamera.default(), position=jax.numpy.asarray(
+        [6.0, -2.0, -18.0], jax.numpy.float32)).look_at([1.0, 0.5, 0.0])
+    np.testing.assert_allclose(cam.forward.numpy(), np.asarray(jcam.forward), atol=2e-6, rtol=0)
+
+
 # tests/test_viewer.py's four cases on the port's viewer, at 32x18.
 BASE_REQ = {
     "pos": [0, 0, -19], "forward": [0, 0, 1], "fov": 1.0,

@@ -2,8 +2,9 @@
 version on the card (the mesh kernel M1 in both branches, with active
 masks, and its one launch for all meshes with the merge inside), proof that CUDA tensors launch the kernels (with and without
 autograd, and with meshes in the scene), the card's frames against the
-CPU's (and ``bench.parity_check``), the card's gradient against the CPU's,
-and the sharded trace over a world of one NCCL rank.
+CPU's (and ``bench.parity_check``), the card's gradient against the CPU's
+(and d/d(yaw, pitch) through ``Camera.rotated``), the camera's pose
+methods on the card, and the sharded trace over a world of one NCCL rank.
 Every test here is marked ``gpu`` and skips without a CUDA device.
 
 On a machine with a card (the root conftest.py imports jax, which such a
@@ -330,6 +331,40 @@ def test_small_frame_gradient_matches_cpu(frame):
         fxaa=bhx_torch.FxaaConfig(enabled=False), tonemap=False,
     )
     r = checks.compare_gradients(scene, cfg)
+    assert r["kept_frac"] > 0.3, r
+    assert r["ok"], r
+
+
+def test_pose_methods_stay_on_card(frame):
+    """``Camera.look_at``, ``right`` and ``rotated`` on a camera on the card
+    give tensors on the card, equal to the same calls on the CPU within
+    2e-6; a tensor angle on the card keeps its graph."""
+    cam = frame[0].camera
+    posed = dataclasses.replace(cam, position=torch.tensor([6.0, -2.0, -18.0], device="cuda"))
+    yaw = torch.tensor(0.35, device="cuda", requires_grad=True)
+    for on_card, on_cpu in (
+            (cam.rotated(yaw, -0.15), cam.to("cpu").rotated(0.35, -0.15)),
+            (posed.look_at((0.0, 0.0, 0.0)), posed.to("cpu").look_at((0.0, 0.0, 0.0))),
+            (cam.look_at([3.0, 1.0, 0.0]).rotated(-0.5, 0.2),
+             cam.to("cpu").look_at([3.0, 1.0, 0.0]).rotated(-0.5, 0.2))):
+        for got, want in ((on_card.forward, on_cpu.forward), (on_card.right(), on_cpu.right())):
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.detach().cpu(), want, atol=2e-6, rtol=0)
+    assert cam.rotated(yaw, -0.15).forward.grad_fn is not None
+
+
+def test_pose_gradient_matches_cpu(frame):
+    """d/d(yaw, pitch) of one fixed weighted-pixel loss through
+    ``Camera.rotated`` at 96x54 (dense, 300 iterations, no post): the card
+    against the plain path on the CPU within 1e-3 of the larger entry
+    (``checks.compare_pose_gradients``)."""
+    scene, _ = frame
+    cfg = bhx_torch.RenderConfig(
+        width=96, height=54, use_ladder=False, max_iterations=300,
+        bloom=bhx_torch.BloomConfig(enabled=False),
+        fxaa=bhx_torch.FxaaConfig(enabled=False), tonemap=False,
+    )
+    r = checks.compare_pose_gradients(scene, cfg, 0.35, -0.15)
     assert r["kept_frac"] > 0.3, r
     assert r["ok"], r
 
