@@ -29,7 +29,7 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.io         PNG and scene checkpoint I/O (bhx's .npz layout)
   bhx_torch.cli        ``python -m bhx_torch render | bench | assets | fit``
   bhx_torch.viewer     the HTTP viewer
-  bhx_torch.profiling  stage timing, frame_report
+  bhx_torch.profiling  spans and lane counters on the profiler's clock, profile_trace
   bhx_torch.entry      a small forward render and a sharded dry run for a quick check
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors

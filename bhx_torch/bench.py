@@ -25,7 +25,8 @@ from bhx_torch.kernels import build, launch_counts
 from bhx_torch.parallel import apply_params, scene_params
 from bhx_torch.pipeline import render
 from bhx_torch.scene import Scene, with_spin
-from bhx_torch.tracer import ARRAY_COMPOSITE, ARRAY_SKY, crossing_overflow_stats
+from bhx_torch.profiling import KERNEL_COMPOSITE, KERNEL_SKY, PREFIX
+from bhx_torch.tracer import crossing_overflow_stats
 
 
 def run_bench(width: int = 1918, height: int = 1081, iters: int = 5,
@@ -117,11 +118,12 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
     """One frame of ``scene`` under ``cfg`` on the card, after a warm-up:
     ms a frame by CUDA events, and by ``torch.profiler`` the device's busy
     ms a frame (the union of kernel intervals), its idle share, the busy
-    ms of the march, composite, sky and mesh kernels (by name), and the
-    device ms of the kernels launched inside the array-texture stages
-    (``tracer.ARRAY_COMPOSITE`` and ``tracer.ARRAY_SKY``, plain torch: the
-    kernels of the ops inside each host range), and the number of frames it
-    rendered (``frames``: the warm-up, the timed and the profiled ones)."""
+    ms of the march, composite, sky and mesh kernels (by name), the device
+    ms of the kernels launched inside the composite's and the sky's kernel
+    spans (``array_composite_ms``, ``array_sky_ms``: ``profiling.KERNEL_COMPOSITE``
+    and ``KERNEL_SKY``, in array mode the plain-torch stages), and the
+    number of frames it rendered (``frames``: the warm-up, the timed and
+    the profiled ones).  The program's spans are no device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     render(scene, cfg)
@@ -138,8 +140,8 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
             render(scene, cfg)
         torch.cuda.synchronize()
     events = prof.events()
-    stages = (ARRAY_COMPOSITE, ARRAY_SKY)
-    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in stages]
+    kernels = [e for e in events
+               if e.device_type.name == "CUDA" and not e.name.startswith(PREFIX)]
 
     def stage_ms(name: str) -> float:
         """Device ms a frame of the kernels that the ops inside the host
@@ -168,8 +170,8 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
                 # sky_kernel, mesh_queue_kernel and mesh_kernel.
                 march_ms=busy_ms("march"), composite_ms=busy_ms("shade_composite"),
                 sky_ms=busy_ms("sky_kernel"), mesh_ms=busy_ms("mesh_"),
-                array_composite_ms=stage_ms(ARRAY_COMPOSITE),
-                array_sky_ms=stage_ms(ARRAY_SKY))
+                array_composite_ms=stage_ms(KERNEL_COMPOSITE),
+                array_sky_ms=stage_ms(KERNEL_SKY))
 
 
 def grad_check(width: int = 320, height: int = 180, rel_tol: float = 0.1) -> Dict:

@@ -30,6 +30,7 @@ from bhx_torch.integrate import (
     B1, B3, B4, B6, E1, E3, E4, E5, E6,
 )
 from bhx_torch.kernels import build
+from bhx_torch.profiling import REPLAY_MARCH, span
 from bhx_torch.scene import const
 
 IN_FIELDS = 10  # px, py, pz, dx, dy, dz, h, active, amount, steps_done
@@ -442,28 +443,29 @@ def march_replay(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tenso
     done, and an inactive pass is an identity, so the replayed trajectory
     is the kernel's with no step-count rounding."""
     mode = _mode(integrator, geodesics)
-    replays[KERNEL_NAMES[mode]] += 1
-    rays, params = rays.detach(), params.detach().requires_grad_()
-    live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]])  # active, steps_done
-    grad_rays = torch.zeros_like(rays)
-    grad_params = torch.zeros_like(params)
-    batches = [((~live).nonzero()[:, 0], 0)]
-    batches += [(idx, max_iterations)
-                for idx in live.nonzero()[:, 0].split(REPLAY_CHUNK_RAYS)]
-    for idx, steps in batches:
-        if not len(idx):
-            continue
-        r = rays[:, idx].requires_grad_()
-        with torch.enable_grad():
-            out = _run(r, params, steps, tex_opacity_min, show_disk, mode,
-                       checkpointed=True)
-            gr, gp = torch.autograd.grad(out, (r, params), grad_out[:, idx],
-                                         allow_unused=True)
-        if gr is not None:
-            grad_rays[:, idx] = gr
-        if gp is not None:
-            grad_params += gp
-    return grad_rays, grad_params
+    with span(REPLAY_MARCH):
+        replays[KERNEL_NAMES[mode]] += 1
+        rays, params = rays.detach(), params.detach().requires_grad_()
+        live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]])  # active, steps_done
+        grad_rays = torch.zeros_like(rays)
+        grad_params = torch.zeros_like(params)
+        batches = [((~live).nonzero()[:, 0], 0)]
+        batches += [(idx, max_iterations)
+                    for idx in live.nonzero()[:, 0].split(REPLAY_CHUNK_RAYS)]
+        for idx, steps in batches:
+            if not len(idx):
+                continue
+            r = rays[:, idx].requires_grad_()
+            with torch.enable_grad():
+                out = _run(r, params, steps, tex_opacity_min, show_disk, mode,
+                           checkpointed=True)
+                gr, gp = torch.autograd.grad(out, (r, params), grad_out[:, idx],
+                                             allow_unused=True)
+            if gr is not None:
+                grad_rays[:, idx] = gr
+            if gp is not None:
+                grad_params += gp
+        return grad_rays, grad_params
 
 
 def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,

@@ -23,6 +23,7 @@ from torch.autograd.function import once_differentiable
 from bhx_torch.kernels import build
 from bhx_torch.kernels.march import CROSS_FIELDS, MAX_CROSSINGS
 from bhx_torch.procedural import blackbody_tint_channels, disk_texel_m, _tint_coeffs
+from bhx_torch.profiling import REPLAY_COMPOSITE, REPLAY_INGREDIENTS, span
 from bhx_torch.shading import sample_gain
 
 # Scalar parameter vector of the shade pass.
@@ -171,8 +172,9 @@ def composite_replay(slots, cam_dist, params, gain, grad_out, *, show_texture: b
     """The composite's vector-Jacobian product: the cotangents of
     ``(slots, cam_dist, params, gain)`` for the cotangent ``grad_out`` of
     its (4, N) output, by replaying the plain shade + composite."""
-    return _replay("composite", _composite_rows, (slots, cam_dist, params, gain),
-                   grad_out, show_texture, show_redshift)
+    with span(REPLAY_COMPOSITE):
+        return _replay("composite", _composite_rows, (slots, cam_dist, params, gain),
+                       grad_out, show_texture, show_redshift)
 
 
 def _composite_forward(slots, cam_dist, params, gain, show_texture: bool,
@@ -256,8 +258,9 @@ def ingredients_replay(slots, cam_dist, params, grad_out, *, show_texture: bool 
     """The ingredients' vector-Jacobian product: the cotangents of
     ``(slots, cam_dist, params)`` for the cotangent ``grad_out`` of the
     (K*7, N) output, by replaying the plain ingredients."""
-    return _replay("ingredients", _ingredient_rows, (slots, cam_dist, params),
-                   grad_out, show_texture, show_redshift)
+    with span(REPLAY_INGREDIENTS):
+        return _replay("ingredients", _ingredient_rows, (slots, cam_dist, params),
+                       grad_out, show_texture, show_redshift)
 
 
 def _ingredients_forward(slots, cam_dist, params, show_texture: bool,

@@ -18,6 +18,7 @@ from torch.autograd.function import once_differentiable
 from bhx_torch.kernels import build
 from bhx_torch.kernels.shade import tint_table
 from bhx_torch.procedural import sky_radiance_channels
+from bhx_torch.profiling import REPLAY_SKY, REPLAY_SKY_FINALIZE, span
 from bhx_torch.shading import sky_uv
 
 RECORD_ROWS = 8
@@ -55,7 +56,8 @@ def _replay(counter: str, fn, x, grad_out, show_sky: bool) -> torch.Tensor:
 def sky_rows_replay(rows, grad_out, show_sky: bool = True) -> torch.Tensor:
     """The sky's vector-Jacobian product: the cotangent of the (8, N)
     ``rows`` for the cotangent ``grad_out`` of its (3, N) output."""
-    return _replay("sky", _sky_rows, rows, grad_out, show_sky)
+    with span(REPLAY_SKY):
+        return _replay("sky", _sky_rows, rows, grad_out, show_sky)
 
 
 def _sky_rows_forward(rows: torch.Tensor, show_sky: bool) -> torch.Tensor:
@@ -109,7 +111,8 @@ def sky_finalize_replay(record, grad_out, show_sky: bool = True) -> torch.Tensor
     """The interleaved sky's vector-Jacobian product: the cotangent of the
     (..., 8) ``record`` for the cotangent ``grad_out`` of its (..., 3)
     output."""
-    return _replay("sky_finalize", _sky_interleaved, record, grad_out, show_sky)
+    with span(REPLAY_SKY_FINALIZE):
+        return _replay("sky_finalize", _sky_interleaved, record, grad_out, show_sky)
 
 
 def _sky_finalize_forward(record: torch.Tensor, show_sky: bool) -> torch.Tensor:

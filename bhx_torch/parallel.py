@@ -58,6 +58,9 @@ from bhx_torch.config import RenderConfig
 from bhx_torch.pipeline import (
     _refine_masks, crop_ladder, image_from_record, image_from_rows, render,
 )
+from bhx_torch.profiling import (
+    STEP_ALL_REDUCE, STEP_BACKWARD, STEP_FORWARD, STEP_OPTIMIZER, span,
+)
 from bhx_torch.scene import Scene, _device, scene_from_state
 
 # Seconds a collective, a rendezvous or a spawned world may take before it
@@ -555,9 +558,11 @@ def train_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer
     rank computes the same loss, the gradients are summed over the ranks
     before the update, and the parameters stay equal on every rank; the
     trace follows ``cfg.use_ladder`` as ``render`` does (:func:`_step_image`)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, scene, target, cfg, mesh)
-    loss.backward()
+    with span(STEP_FORWARD):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, scene, target, cfg, mesh)
+    with span(STEP_BACKWARD):
+        loss.backward()
     if _sharded(mesh):
         # One sum is the frame's gradient, on the ladder too: every path
         # from a parameter to the loss runs through exactly one traced ray,
@@ -566,11 +571,13 @@ def train_step(params: Dict[str, torch.Tensor], optimizer: torch.optim.Optimizer
         # rays are owned alike; the re-trace masks carry no gradient, and no
         # parameter reaches the sky or the post chain.  Every rank runs one
         # graph, so the same parameters have gradients.
-        have = [p for p in params.values() if p.grad is not None]
-        summed = _all_reduce(torch.cat([p.grad.reshape(-1) for p in have]), mesh)
-        for p, g in zip(have, summed.split([p.numel() for p in have])):
-            p.grad.copy_(g.view_as(p.grad))
-    optimizer.step()
+        with span(STEP_ALL_REDUCE):
+            have = [p for p in params.values() if p.grad is not None]
+            summed = _all_reduce(torch.cat([p.grad.reshape(-1) for p in have]), mesh)
+            for p, g in zip(have, summed.split([p.numel() for p in have])):
+                p.grad.copy_(g.view_as(p.grad))
+    with span(STEP_OPTIMIZER):
+        optimizer.step()
     return loss.detach()
 
 

@@ -25,6 +25,9 @@ import torch
 from bhx_torch import tracer
 from bhx_torch.config import RenderConfig
 from bhx_torch.post import bloom_chain_chw, fxaa_pass_chw, mix_pass, tonemap_pass
+from bhx_torch.profiling import (
+    LADDER_MASKS, POST_BLOOM, POST_FXAA, POST_TONEMAP, RENDER, ladder_level, span,
+)
 from bhx_torch.scene import Scene
 from bhx_torch.shading import sample_sky
 from bhx_torch.tracer import (
@@ -58,64 +61,68 @@ def _refine_masks(prev_rows: torch.Tensor, cfg: RenderConfig, width: int,
     record of every pixel that is not re-traced (a coarse copy, or an
     interpolated escape).  The interpolate decision depends only on the 4
     coarse neighbours, so it is computed on the coarse grid and upsampled."""
-    m = cfg.ladder.multiplier
-    dev = prev_rows.device
-    gy, gx = torch.meshgrid(torch.arange(height, device=dev),
-                            torch.arange(width, device=dev), indexing="ij")
-    tx = gx // m
-    ty = gy // m
-    exact = ((gx % m) == 0) & ((gy % m) == 0)
+    # Two spans, so that neither holds more operations than a trace's
+    # breakdown looks back over for the range around an idle gap.
+    with span(LADDER_MASKS):
+        m = cfg.ladder.multiplier
+        dev = prev_rows.device
+        gy, gx = torch.meshgrid(torch.arange(height, device=dev),
+                                torch.arange(width, device=dev), indexing="ij")
+        tx = gx // m
+        ty = gy // m
+        exact = ((gx % m) == 0) & ((gy % m) == 0)
 
-    def up(img):
-        r = img.repeat_interleave(m, dim=-2).repeat_interleave(m, dim=-1)
-        return r[..., :height, :width]
+        def up(img):
+            r = img.repeat_interleave(m, dim=-2).repeat_interleave(m, dim=-1)
+            return r[..., :height, :width]
 
-    def sh_x(p):
-        return torch.cat([p[..., :, 1:], p[..., :, -1:]], dim=-1)
+        def sh_x(p):
+            return torch.cat([p[..., :, 1:], p[..., :, -1:]], dim=-1)
 
-    def sh_y(p):
-        return torch.cat([p[..., 1:, :], p[..., -1:, :]], dim=-2)
+        def sh_y(p):
+            return torch.cat([p[..., 1:, :], p[..., -1:, :]], dim=-2)
 
-    ct = math.cos(cfg.angle_division_threshold)
-    a_c = prev_rows[REC_ALPHA]
-    d_c = prev_rows[REC_DIR]
-    trd_c = sh_x(d_c)
-    bld_c = sh_y(d_c)
-    brd_c = sh_x(sh_y(d_c))
-    aligned_c = (
-        _dirs_aligned_ch(bld_c, d_c, ct)
-        & _dirs_aligned_ch(brd_c, trd_c, ct)
-        & _dirs_aligned_ch(d_c, trd_c, ct)
-        & _dirs_aligned_ch(bld_c, brd_c, ct)
-    )
-    all_escape_c = (
-        (a_c == 0.0) & (sh_x(a_c) == 0.0) & (sh_y(a_c) == 0.0)
-        & (sh_x(sh_y(a_c)) == 0.0)
-    )
-    can_interp = up(aligned_c & all_escape_c)
+        ct = math.cos(cfg.angle_division_threshold)
+        a_c = prev_rows[REC_ALPHA]
+        d_c = prev_rows[REC_DIR]
+        trd_c = sh_x(d_c)
+        bld_c = sh_y(d_c)
+        brd_c = sh_x(sh_y(d_c))
+        aligned_c = (
+            _dirs_aligned_ch(bld_c, d_c, ct)
+            & _dirs_aligned_ch(brd_c, trd_c, ct)
+            & _dirs_aligned_ch(d_c, trd_c, ct)
+            & _dirs_aligned_ch(bld_c, brd_c, ct)
+        )
+    with span(LADDER_MASKS):
+        all_escape_c = (
+            (a_c == 0.0) & (sh_x(a_c) == 0.0) & (sh_y(a_c) == 0.0)
+            & (sh_x(sh_y(a_c)) == 0.0)
+        )
+        can_interp = up(aligned_c & all_escape_c)
 
-    tl = up(prev_rows)
-    fx = gx / m - tx
-    fy = gy / m - ty
-    dir_interp = (
-        (tl[REC_DIR] * (1 - fx) + up(trd_c) * fx) * (1 - fy)
-        + (up(bld_c) * (1 - fx) + up(brd_c) * fx) * fy
-    )
+        tl = up(prev_rows)
+        fx = gx / m - tx
+        fy = gy / m - ty
+        dir_interp = (
+            (tl[REC_DIR] * (1 - fx) + up(trd_c) * fx) * (1 - fy)
+            + (up(bld_c) * (1 - fx) + up(brd_c) * fx) * fy
+        )
 
-    # known = exact ? coarse copy : interpolated escape (no color, alpha 0,
-    # full transmission).
-    zeros = torch.zeros_like(fx)
-    ones = torch.ones_like(fx)
-    known = torch.stack([
-        torch.where(exact, tl[0], zeros),
-        torch.where(exact, tl[1], zeros),
-        torch.where(exact, tl[2], zeros),
-        torch.where(exact, tl[3], zeros),
-        torch.where(exact, tl[4], ones),
-        torch.where(exact, tl[5], dir_interp[0]),
-        torch.where(exact, tl[6], dir_interp[1]),
-        torch.where(exact, tl[7], dir_interp[2]),
-    ])
+        # known = exact ? coarse copy : interpolated escape (no color, alpha 0,
+        # full transmission).
+        zeros = torch.zeros_like(fx)
+        ones = torch.ones_like(fx)
+        known = torch.stack([
+            torch.where(exact, tl[0], zeros),
+            torch.where(exact, tl[1], zeros),
+            torch.where(exact, tl[2], zeros),
+            torch.where(exact, tl[3], zeros),
+            torch.where(exact, tl[4], ones),
+            torch.where(exact, tl[5], dir_interp[0]),
+            torch.where(exact, tl[6], dir_interp[1]),
+            torch.where(exact, tl[7], dir_interp[2]),
+        ])
     return ~exact & ~can_interp, known
 
 
@@ -143,11 +150,11 @@ def trace_image_record_rows(scene: Scene, cfg: RenderConfig, width: int,
 def ladder_trace_rows(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """Coarse-to-fine trace at the ladder's final resolution, (8, H, W)."""
     lad = cfg.ladder_for_output()
-    w0, h0 = lad.resolution(0)
-    rows = trace_image_record_rows(scene, cfg, w0, h0)
+    with span(ladder_level(0)):
+        rows = trace_image_record_rows(scene, cfg, *lad.resolution(0))
     for lvl in range(1, lad.levels):
-        w, h = lad.resolution(lvl)
-        rows = _refine_level(rows, scene, cfg, w, h)
+        with span(ladder_level(lvl)):
+            rows = _refine_level(rows, scene, cfg, *lad.resolution(lvl))
     return rows
 
 
@@ -179,12 +186,12 @@ def crop_ladder(rows: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
 def render(scene: Scene, cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
     """Render the scene to a (height, width, 3) float32 image in [0, 1], on
     the scene's device."""
-    if cfg.use_ladder:
-        rows = crop_ladder(ladder_trace_rows(scene, cfg), cfg)
-    else:
-        rows = trace_image_record_rows(scene, cfg, cfg.width, cfg.height)
-
-    return image_from_rows(rows, scene, cfg)
+    with span(RENDER):
+        if cfg.use_ladder:
+            rows = crop_ladder(ladder_trace_rows(scene, cfg), cfg)
+        else:
+            rows = trace_image_record_rows(scene, cfg, cfg.width, cfg.height)
+        return image_from_rows(rows, scene, cfg)
 
 
 def image_from_rows(rows: torch.Tensor, scene: Scene, cfg: RenderConfig) -> torch.Tensor:
@@ -201,11 +208,17 @@ def image_from_rows(rows: torch.Tensor, scene: Scene, cfg: RenderConfig) -> torc
 def _post(chw: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """The post chain on a (3, H, W) image: bloom, mix, ACES, FXAA."""
     if cfg.bloom.enabled:
-        chw = mix_pass(chw, bloom_chain_chw(chw, cfg.bloom), cfg.bloom.mix_ratio)
-    if cfg.tonemap:
-        chw = tonemap_pass(chw, channel_major=True)
+        with span(POST_BLOOM):
+            bloom = bloom_chain_chw(chw, cfg.bloom)
+    if cfg.bloom.enabled or cfg.tonemap:
+        with span(POST_TONEMAP):
+            if cfg.bloom.enabled:
+                chw = mix_pass(chw, bloom, cfg.bloom.mix_ratio)
+            if cfg.tonemap:
+                chw = tonemap_pass(chw, channel_major=True)
     if cfg.fxaa.enabled:
-        chw = fxaa_pass_chw(chw, cfg.fxaa)
+        with span(POST_FXAA):
+            chw = fxaa_pass_chw(chw, cfg.fxaa)
     return chw
 
 

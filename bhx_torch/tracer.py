@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from bhx_torch import kerr
 from bhx_torch.config import Integrator, RenderConfig
@@ -44,6 +43,10 @@ from bhx_torch.kernels.march import (
 )
 from bhx_torch.kernels.shade import composite, pack_shade_params
 from bhx_torch.kernels.sky import sky_finalize, sky_rows
+from bhx_torch.profiling import (
+    KERNEL_COMPOSITE, KERNEL_MARCH, KERNEL_MESH, KERNEL_SKY, SKY, TRACE, TRACE_MARCH,
+    TRACE_MERGE, TRACE_SHADE, TRACE_STRAIGHT, count_lanes, span,
+)
 from bhx_torch.scene import Camera, Scene, const, texture
 from bhx_torch.shading import disk_shade, sample_sky
 
@@ -61,11 +64,6 @@ REC_DIR = slice(5, 8)
 # traced in (a band, a ladder level, a rank's share).  The array composite
 # shades a compacted batch of valid slots, which this does not cover.
 CPU_BATCH_ALIGN = 64
-
-# Profiler ranges of the array-texture stages, which are plain torch
-# (``bench.frame_profile`` reads the device time of the kernels they launch).
-ARRAY_COMPOSITE = "bhx_torch.array_composite"
-ARRAY_SKY = "bhx_torch.array_sky"
 
 
 def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -128,17 +126,20 @@ def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
 
 
 def _merge_slots(slots_a, count_a, slots_b, count_b):
-    """Append slot list b after a's entries: merged[i] <- b[i - count_a]."""
+    """Append slot list b after a's entries: merged[i] <- b[i - count_a].
+    A span a slot, so that none holds more operations than a trace's
+    breakdown looks back over for the range around an idle gap."""
     cf = CROSS_FIELDS
     merged = list(slots_a.unbind(0))
     for i in range(MAX_CROSSINGS):
-        keep = (count_a > float(i)) | (slots_a[i * cf + 6] > 0.5)
-        sels = [count_a == float(i - j) for j in range(i + 1)]
-        for f in range(cf):
-            take = torch.zeros_like(slots_b[f])
-            for j in range(i + 1):
-                take = torch.where(sels[j], slots_b[j * cf + f], take)
-            merged[i * cf + f] = torch.where(keep, merged[i * cf + f], take)
+        with span(TRACE_MERGE):
+            keep = (count_a > float(i)) | (slots_a[i * cf + 6] > 0.5)
+            sels = [count_a == float(i - j) for j in range(i + 1)]
+            for f in range(cf):
+                take = torch.zeros_like(slots_b[f])
+                for j in range(i + 1):
+                    take = torch.where(sels[j], slots_b[j * cf + f], take)
+                merged[i * cf + f] = torch.where(keep, merged[i * cf + f], take)
     return (torch.stack(merged),
             torch.clamp(count_a + count_b, 0.0, float(MAX_CROSSINGS)))
 
@@ -177,7 +178,7 @@ def _straight_phase(state: Dict, scene: Scene, cfg: RenderConfig) -> Dict:
     state = dict(state)
     if cfg.render_meshes and scene.meshes:
         # Mesh hits carry no gradient (bhx wraps them in stop_gradient).
-        with torch.no_grad():
+        with torch.no_grad(), span(KERNEL_MESH):
             mesh = intersect_meshes((px, py, pz), (dx, dy, dz), scene.meshes, active=mask)
         mesh_hit = mesh["hit"]
         enters = mask & (inside | ((v1 | v2) & (sphere_t < mesh["t"])))
@@ -253,7 +254,8 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
     into the state (``bhx.tracer._march_phase_pallas`` with one round)."""
     bh = black_hole
     rays, was = _march_inputs(state, cfg)
-    out = march(rays, params, **march_kwargs(cfg))
+    with span(KERNEL_MARCH):
+        out = march(rays, params, **march_kwargs(cfg))
     o = _OUT_FIXED
     # Inactive lanes came back unchanged with zero counters and slots.
     w_closest = torch.minimum(
@@ -320,8 +322,10 @@ def _trace_phases(state: Dict, scene: Scene, cfg: RenderConfig,
     _, disk_normal = bh.disk_frame()
     params = pack_params(bh, disk_normal, cfg)
     for r in range(rounds):
-        state = _straight_phase(state, scene, cfg)
-        state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
+        with span(TRACE_STRAIGHT):
+            state = _straight_phase(state, scene, cfg)
+        with span(TRACE_MARCH):
+            state = _march_phase(state, bh, params, cfg, first_phase=(r == 0))
     return state
 
 
@@ -340,28 +344,27 @@ def _array_composite(slots: torch.Tensor, cam_dist: torch.Tensor, scene: Scene,
     g, b, transmission."""
     bh = scene.black_hole
     cf, k_slots, n = CROSS_FIELDS, MAX_CROSSINGS, cam_dist.shape[0]
-    with record_function(ARRAY_COMPOSITE):
-        rot_mat, _ = bh.disk_frame()
-        valid = slots.reshape(k_slots, cf, n)[:, 6] > 0.5
-        sel = valid.reshape(-1).nonzero().squeeze(1)  # k * n + ray
-        k = torch.div(sel, n, rounding_mode="floor")
-        base = k * (cf * n) + (sel - k * n)  # row k * cf of the ray's column
-        flat = slots.reshape(-1)
-        fields = [flat.index_select(0, base + f * n) for f in range(6)]
-        rgb, op = disk_shade(
-            torch.stack(fields[:3], -1), torch.stack(fields[3:6], -1),
-            cam_dist.index_select(0, sel - k * n), bh, rot_mat,
-            texture(scene, "disk_texture"), texture(scene, "temp_lut"), scene.time,
-            show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift,
-        )
-        op_kn = cam_dist.new_zeros((k_slots * n,)).index_copy(0, sel, op)
-        rgb_kn = cam_dist.new_zeros((k_slots * n, 3)).index_copy(
-            0, sel, torch.clamp(rgb, 0.0, 1.0))
-        op_kn, rgb_kn = op_kn.reshape(k_slots, n), rgb_kn.reshape(k_slots, n, 3)
-        trans = torch.cumprod(1.0 - op_kn, dim=0)
-        trans_before = torch.cat([cam_dist.new_ones((1, n)), trans[:-1]])
-        color = ((trans_before * op_kn).unsqueeze(-1) * rgb_kn).sum(0)
-        return torch.cat([color.t(), trans[-1:]])
+    rot_mat, _ = bh.disk_frame()
+    valid = slots.reshape(k_slots, cf, n)[:, 6] > 0.5
+    sel = valid.reshape(-1).nonzero().squeeze(1)  # k * n + ray
+    k = torch.div(sel, n, rounding_mode="floor")
+    base = k * (cf * n) + (sel - k * n)  # row k * cf of the ray's column
+    flat = slots.reshape(-1)
+    fields = [flat.index_select(0, base + f * n) for f in range(6)]
+    rgb, op = disk_shade(
+        torch.stack(fields[:3], -1), torch.stack(fields[3:6], -1),
+        cam_dist.index_select(0, sel - k * n), bh, rot_mat,
+        texture(scene, "disk_texture"), texture(scene, "temp_lut"), scene.time,
+        show_texture=cfg.show_disk_texture, show_redshift=cfg.show_redshift,
+    )
+    op_kn = cam_dist.new_zeros((k_slots * n,)).index_copy(0, sel, op)
+    rgb_kn = cam_dist.new_zeros((k_slots * n, 3)).index_copy(
+        0, sel, torch.clamp(rgb, 0.0, 1.0))
+    op_kn, rgb_kn = op_kn.reshape(k_slots, n), rgb_kn.reshape(k_slots, n, 3)
+    trans = torch.cumprod(1.0 - op_kn, dim=0)
+    trans_before = torch.cat([cam_dist.new_ones((1, n)), trans[:-1]])
+    color = ((trans_before * op_kn).unsqueeze(-1) * rgb_kn).sum(0)
+    return torch.cat([color.t(), trans[-1:]])
 
 
 def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
@@ -374,14 +377,15 @@ def _shade_deferred(state: Dict, scene: Scene, cfg: RenderConfig,
     bh = scene.black_hole
     n = cam_dist.shape[0]
     if cfg.show_disk and cfg.texture_mode == "array":
-        rgbt = _array_composite(state["slots"], cam_dist, scene, cfg)
+        with span(KERNEL_COMPOSITE):
+            rgbt = _array_composite(state["slots"], cam_dist, scene, cfg)
     elif cfg.show_disk:
         rot_mat, _ = bh.disk_frame()
-        rgbt = composite(
-            state["slots"], cam_dist, pack_shade_params(bh, rot_mat, scene.time),
-            scene.disk_gain, show_texture=cfg.show_disk_texture,
-            show_redshift=cfg.show_redshift,
-        )
+        shade_params = pack_shade_params(bh, rot_mat, scene.time)
+        with span(KERNEL_COMPOSITE):
+            rgbt = composite(state["slots"], cam_dist, shade_params, scene.disk_gain,
+                             show_texture=cfg.show_disk_texture,
+                             show_redshift=cfg.show_redshift)
     else:
         rgbt = torch.cat([cam_dist.new_zeros((3, n)), cam_dist.new_ones((1, n))])
     trans_total = rgbt[3]
@@ -399,37 +403,43 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
     tensor of rows ``cr cg cb alpha amount dx dy dz``.
 
     ``active`` (optional bool (N,)): rays with False are dead lanes that
-    produce an escape record; the march kernel skips them."""
-    n = origins.shape[0]
-    pad = -n % CPU_BATCH_ALIGN if origins.device.type == "cpu" else 0
-    if pad:  # dead lanes, cut off below
-        origins = torch.cat([origins, origins[-1:].expand(pad, 3)])
-        directions = torch.cat([directions, directions[-1:].expand(pad, 3)])
-        live = torch.ones(n, dtype=torch.bool) if active is None else active
-        active = torch.cat([live, torch.zeros(pad, dtype=torch.bool)])
-    bh = scene.black_hole
-    state = _init_state(origins, directions)
-    if active is not None:
-        state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
-    cam_dist = _norm(origins - bh.position)
+    produce an escape record; the march kernel skips them.  Recorded as
+    the span ``profiling.TRACE``, its lanes counted while a profiler
+    records."""
+    with span(TRACE):
+        n = origins.shape[0]
+        count_lanes(n, active)
+        pad = -n % CPU_BATCH_ALIGN if origins.device.type == "cpu" else 0
+        if pad:  # dead lanes, cut off below
+            origins = torch.cat([origins, origins[-1:].expand(pad, 3)])
+            directions = torch.cat([directions, directions[-1:].expand(pad, 3)])
+            live = torch.ones(n, dtype=torch.bool) if active is None else active
+            active = torch.cat([live, torch.zeros(pad, dtype=torch.bool)])
+        bh = scene.black_hole
+        state = _init_state(origins, directions)
+        if active is not None:
+            state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
+        cam_dist = _norm(origins - bh.position)
 
-    state = _trace_phases(state, scene, cfg, rounds)
-    # Rays that want a straight phase after the last march get one more;
-    # any that would re-enter again are treated as escapes.
-    state = _straight_phase(state, scene, cfg)
-    status = torch.where(state["status"] == 1, 2, state["status"])
-    state["status"] = status.to(torch.int32)
+        state = _trace_phases(state, scene, cfg, rounds)
+        # Rays that want a straight phase after the last march get one more;
+        # any that would re-enter again are treated as escapes.
+        with span(TRACE_STRAIGHT):
+            state = _straight_phase(state, scene, cfg)
+        status = torch.where(state["status"] == 1, 2, state["status"])
+        state["status"] = status.to(torch.int32)
 
-    shaded = _shade_deferred(state, scene, cfg, cam_dist)
-    # Classification (reference ray.wgsl:583-595): final-color pixels
-    # composited something or marched at most few_iters_threshold steps;
-    # the other escapes carry (direction, alpha 0).
-    total_iters = state["march_steps"] + state["entered"].to(torch.int32)
-    alpha = state["hit"] | (total_iters <= cfg.few_iters_threshold)
-    return torch.cat([
-        shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
-        torch.stack([state["dx"], state["dy"], state["dz"]]),
-    ])[:, :n]
+        with span(TRACE_SHADE):
+            shaded = _shade_deferred(state, scene, cfg, cam_dist)
+            # Classification (reference ray.wgsl:583-595): final-color pixels
+            # composited something or marched at most few_iters_threshold
+            # steps; the other escapes carry (direction, alpha 0).
+            total_iters = state["march_steps"] + state["entered"].to(torch.int32)
+            alpha = state["hit"] | (total_iters <= cfg.few_iters_threshold)
+            return torch.cat([
+                shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
+                torch.stack([state["dx"], state["dy"], state["dz"]]),
+            ])[:, :n]
 
 
 def march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,
@@ -498,7 +508,8 @@ def finalize_image(record: torch.Tensor, sky_tex, show_sky: bool = True,
     finalize kernel (``kernels.sky.sky_finalize``: its plain version on the
     CPU); array mode samples ``sky_tex``."""
     if texture_mode == "procedural":
-        return sky_finalize(record.contiguous(), show_sky)
+        with span(SKY), span(KERNEL_SKY):
+            return sky_finalize(record.contiguous(), show_sky)
     return finalize_image_rows(record.movedim(-1, 0), sky_tex, show_sky,
                                texture_mode).movedim(0, -1)
 
@@ -520,16 +531,19 @@ def finalize_image_rows(rows: torch.Tensor, sky_tex, show_sky: bool = True,
     """Final rgb rows from record rows, (8, ...) -> (3, ...): the row-major
     form of :func:`finalize_image`.  Procedural mode runs the sky kernel on
     record rows (``kernels.sky.sky_rows``); array mode samples ``sky_tex``."""
-    if texture_mode == "procedural":
-        out = sky_rows(rows.reshape(8, -1).contiguous(), show_sky)
-        return out.reshape((3,) + rows.shape[1:])
-    if not show_sky:
-        return rows[0:3]
-    amount = rows[REC_AMOUNT]
-    with record_function(ARRAY_SKY):
-        sky = sample_sky(sky_tex, rows[REC_DIR].movedim(0, -1), "array").movedim(-1, 0)
-        w = torch.where(amount > 0.001, amount, 0.0)
-        return rows[0:3] + w * sky
+    with span(SKY):
+        if texture_mode == "procedural":
+            flat = rows.reshape(8, -1).contiguous()
+            with span(KERNEL_SKY):
+                out = sky_rows(flat, show_sky)
+            return out.reshape((3,) + rows.shape[1:])
+        if not show_sky:
+            return rows[0:3]
+        amount = rows[REC_AMOUNT]
+        with span(KERNEL_SKY):
+            sky = sample_sky(sky_tex, rows[REC_DIR].movedim(0, -1), "array").movedim(-1, 0)
+            w = torch.where(amount > 0.001, amount, 0.0)
+            return rows[0:3] + w * sky
 
 
 def trace_rays(origins: torch.Tensor, directions: torch.Tensor, scene: Scene,

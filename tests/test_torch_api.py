@@ -3,7 +3,7 @@
 presets, ``render_tiled``'s checkpoints and retries (the cases of
 ``tests/test_io.py``), PNG and scene I/O between the two packages, the
 command line, the viewer (the cases of ``tests/test_viewer.py``),
-``frame_report``, the port's entry point and ``bench.parity_check``'s
+``profiling.profile_trace``, the port's entry point and ``bench.parity_check``'s
 frame."""
 
 from __future__ import annotations
@@ -384,24 +384,24 @@ def test_viewer_overflow_stats_endpoint():
 
 
 def test_frame_report_keys(tmp_path):
-    from bhx_torch.profiling import frame_report, mrays_per_sec, profile_trace, time_fn
+    """``profile_trace`` writes the block's trace, which holds the render's
+    span, and its lane counters beside it."""
+    from bhx_torch.profiling import ACTIVE_LANES, LANES, RENDER, profile_trace
 
     _, tscene = _scenes()
     cfg = torch_cfg(FAST_CFG).replace(width=W, height=H, use_ladder=True,
                                       ladder=bhx_torch.LadderConfig.for_resolution(W, H, 2),
                                       fxaa=bhx_torch.FxaaConfig(),
                                       bloom=bhx_torch.BloomConfig())
-    report = frame_report(tscene, cfg, iters=1)
-    assert set(report) == {"device", "L0 trace", "L1 refine 34x19", "ladder total",
-                           "sky finalize", "bloom", "mix+tonemap", "fxaa", "full frame",
-                           "mrays_per_s"}
-    assert report["device"] == "cpu"
-    assert all(v > 0 for k, v in report.items() if k != "device")
-    assert mrays_per_sec(2_000_000, 0.5) == 4.0
-    assert set(time_fn(lambda: None, iters=2)) == {"mean_s", "min_s", "runs"}
     with profile_trace(str(tmp_path / "trace")):
-        bhx_torch.render(tscene, cfg.replace(use_ladder=False))
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+        bhx_torch.render(tscene, cfg)
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert RENDER in {e.get("name") for e in trace["traceEvents"]}
+    counts = json.loads((tmp_path / "trace" / "counts.json").read_text())
+    assert set(counts) == {LANES, ACTIVE_LANES}
+    # Level 0 traces 12x7 lanes, all live, and level 1 34x19, some live.
+    assert counts[LANES] == 12 * 7 + 34 * 19
+    assert 12 * 7 <= counts[ACTIVE_LANES] < counts[LANES]
 
 
 def test_entry_renders():
