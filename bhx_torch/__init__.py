@@ -16,6 +16,7 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.shading    sky mapping, ACES, texture sampling, the array disk shade
   bhx_torch.tracer     straight + march phases, deferred disk record, the
                        public tracer API (trace_rays, finalize_*)
+  bhx_torch.graphs     each trace shape replayed as a CUDA graph on the card
   bhx_torch.pipeline   adaptive ladder, sky pass, post chain, render(),
                        render_tiled()
   bhx_torch.post       bloom, mix, ACES, FXAA
@@ -29,7 +30,7 @@ for Hopper (``bhx_torch/csrc``):
   bhx_torch.io         PNG and scene checkpoint I/O (bhx's .npz layout)
   bhx_torch.cli        ``python -m bhx_torch render | bench | assets | fit``
   bhx_torch.viewer     the HTTP viewer
-  bhx_torch.profiling  spans and lane counters on the profiler's clock, profile_trace
+  bhx_torch.profiling  spans and counters on the profiler's clock, profile_trace
   bhx_torch.entry      a small forward render and a sharded dry run for a quick check
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors

@@ -121,7 +121,9 @@ def frame_profile(scene: Scene, cfg: RenderConfig, iters: int = 2) -> Dict:
     ms of the march, composite, sky and mesh kernels (by name), the device
     ms of the kernels launched inside the composite's and the sky's kernel
     spans (``array_composite_ms``, ``array_sky_ms``: ``profiling.KERNEL_COMPOSITE``
-    and ``KERNEL_SKY``, in array mode the plain-torch stages), and the
+    and ``KERNEL_SKY``, in array mode the plain-torch stages; a trace's CUDA
+    graph records no composite span, so in procedural mode read
+    ``composite_ms``), and the
     number of frames it rendered (``frames``: the warm-up, the timed and
     the profiled ones).  The program's spans are no device operations."""
     from torch.profiler import ProfilerActivity, profile

@@ -24,6 +24,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: c for m in _MODULES for name, c in m.launches.items()}
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the launch counts: the
+    launches of a CUDA graph's replay, which no wrapper call counts."""
+    for m in _MODULES:
+        for name in m.launches.keys() & counts.keys():
+            m.launches[name] += counts[name]
+
+
 def replay_counts() -> Dict[str, int]:
     """Backward replays by kernel name since the last reset."""
     return {name: c for m in _MODULES for name, c in m.replays.items()}

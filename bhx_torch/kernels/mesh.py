@@ -87,6 +87,24 @@ def packed(mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     return value
 
 
+_DESCRIBED = ("points", "normals", "tri_points", "tri_normals", "position", "visible")
+
+
+def graph_key(meshes: Sequence) -> Tuple[tuple, list]:
+    """What a CUDA graph of launches over ``meshes`` bakes in: the address of
+    every tensor the kernel reads (:func:`_descriptor`), the meshes' own and
+    their BVH packings', made here where :func:`packed` would remake them, so
+    that no capture makes one.  Returns (the tensors' ids, as a key; the
+    tensors, which the graph holds, so that no id is reused while it
+    lives)."""
+    tensors = []
+    for mesh in meshes:
+        tensors += [getattr(mesh, f) for f in _DESCRIBED]
+        if mesh.num_triangles > BRUTE_FORCE_THRESHOLD:
+            tensors += packed(mesh)
+    return tuple(map(id, tensors)), tensors
+
+
 def launch_groups(meshes: Sequence) -> List[List]:
     """``meshes`` in order, cut into launches of at most MAX_MESHES meshes
     and STAGE_MAX brute-force triangles each."""
@@ -106,9 +124,8 @@ def _descriptor(mesh) -> List[int]:
     """A mesh's kMeshFields int64 of the kernel's ``meshes`` argument."""
     brute = mesh.num_triangles <= BRUTE_FORCE_THRESHOLD
     nodes, tris = (0, 0) if brute else (t.data_ptr() for t in packed(mesh))
-    return [nodes, tris, *(getattr(mesh, f).data_ptr() for f in (
-        "points", "normals", "tri_points", "tri_normals", "position", "visible")),
-        mesh.num_triangles, int(brute)]
+    return [nodes, tris, *(getattr(mesh, f).data_ptr() for f in _DESCRIBED),
+            mesh.num_triangles, int(brute)]
 
 
 def _check(rows, meshes, active) -> None:

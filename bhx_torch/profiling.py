@@ -17,7 +17,10 @@ them that are live, also only while a profiler records.  Live lanes of a
 masked call are summed on the device into the next slot of a ring of
 int64 sums, allocated once a device, with no host sync (a sum written in
 place: the reduction and its cast, no add); :func:`counts` reads the
-totals (the only sync) and :func:`reset_counts` zeroes them.
+totals (the only sync) and :func:`reset_counts` zeroes them.  Beside
+them :data:`CALLS` and :data:`GRAPH_REPLAYS` count the tracer's calls and
+those of them that replayed a CUDA graph (``bhx_torch.graphs``), also only
+while a profiler records.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ REPLAY_SKY_FINALIZE = "bhx_torch.replay.sky_finalize"
 # The lane counters' names in :func:`counts`.
 LANES = "trace.lanes"
 ACTIVE_LANES = "trace.active_lanes"
+# The tracer's calls, and those that replayed a CUDA graph.
+CALLS = "trace.calls"
+GRAPH_REPLAYS = "trace.graph_replays"
 
 _OFF = contextlib.nullcontext()
 _LEVELS = tuple(f"{LADDER}.L{k}" for k in range(8))
@@ -109,6 +115,8 @@ RING_SLOTS = 1024
 
 _lanes = 0
 _active_host = 0
+_calls = 0
+_graph_replays = 0
 # device -> [ring of int64 sums, next slot]
 _active_device: Dict[torch.device, list] = {}
 
@@ -136,16 +144,25 @@ def count_lanes(n: int, active: Optional[torch.Tensor]) -> None:
     entry[1] = slot + 1
 
 
+def count_call(replayed: bool) -> None:
+    """Count a call of the tracer, and whether it replayed a CUDA graph, while
+    a profiler records."""
+    global _calls, _graph_replays
+    if _autograd_profiler._is_profiler_enabled:
+        _calls += 1
+        _graph_replays += replayed
+
+
 def counts() -> Dict[str, int]:
-    """The lane counters' totals since the last :func:`reset_counts`."""
+    """The counters' totals since the last :func:`reset_counts`."""
     live = _active_host + sum(int(ring.sum()) for ring, _ in _active_device.values())
-    return {LANES: _lanes, ACTIVE_LANES: live}
+    return {LANES: _lanes, ACTIVE_LANES: live, CALLS: _calls, GRAPH_REPLAYS: _graph_replays}
 
 
 def reset_counts() -> None:
-    """Zero the lane counters."""
-    global _lanes, _active_host
-    _lanes = _active_host = 0
+    """Zero the counters."""
+    global _lanes, _active_host, _calls, _graph_replays
+    _lanes = _active_host = _calls = _graph_replays = 0
     for entry in _active_device.values():
         entry[0].zero_()
         entry[1] = 0
@@ -155,7 +172,7 @@ def reset_counts() -> None:
 def profile_trace(logdir: Optional[str]):
     """``torch.profiler`` over the block (the card's kernels too, where there
     is one), written as a Chrome trace to ``logdir/trace.json``, with the
-    block's lane counters in ``logdir/counts.json``; nothing when
+    block's counters in ``logdir/counts.json``; nothing when
     ``logdir`` is empty."""
     if not logdir:
         yield

@@ -34,7 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from bhx_torch import kerr
+from bhx_torch import graphs, kerr
 from bhx_torch.config import Integrator, RenderConfig
 from bhx_torch.geometry.intersect import MISS_T, T_MIN
 from bhx_torch.geometry.traverse import intersect_meshes
@@ -45,7 +45,7 @@ from bhx_torch.kernels.shade import composite, pack_shade_params
 from bhx_torch.kernels.sky import sky_finalize, sky_rows
 from bhx_torch.profiling import (
     KERNEL_COMPOSITE, KERNEL_MARCH, KERNEL_MESH, KERNEL_SKY, SKY, TRACE, TRACE_MARCH,
-    TRACE_MERGE, TRACE_SHADE, TRACE_STRAIGHT, count_lanes, span,
+    TRACE_MERGE, TRACE_SHADE, TRACE_STRAIGHT, count_call, count_lanes, span,
 )
 from bhx_torch.scene import Camera, Scene, const, texture
 from bhx_torch.shading import disk_shade, sample_sky
@@ -403,43 +403,56 @@ def trace_rays_record_rows(origins: torch.Tensor, directions: torch.Tensor,
     tensor of rows ``cr cg cb alpha amount dx dy dz``.
 
     ``active`` (optional bool (N,)): rays with False are dead lanes that
-    produce an escape record; the march kernel skips them.  Recorded as
-    the span ``profiling.TRACE``, its lanes counted while a profiler
+    produce an escape record; the march kernel skips them.  On the card,
+    a shape traced before runs as a CUDA graph of the eager trace
+    (``bhx_torch.graphs``).  Recorded as the span ``profiling.TRACE``, its
+    lanes and whether it replayed a graph counted while a profiler
     records."""
     with span(TRACE):
-        n = origins.shape[0]
-        count_lanes(n, active)
-        pad = -n % CPU_BATCH_ALIGN if origins.device.type == "cpu" else 0
-        if pad:  # dead lanes, cut off below
-            origins = torch.cat([origins, origins[-1:].expand(pad, 3)])
-            directions = torch.cat([directions, directions[-1:].expand(pad, 3)])
-            live = torch.ones(n, dtype=torch.bool) if active is None else active
-            active = torch.cat([live, torch.zeros(pad, dtype=torch.bool)])
-        bh = scene.black_hole
-        state = _init_state(origins, directions)
-        if active is not None:
-            state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
-        cam_dist = _norm(origins - bh.position)
+        count_lanes(origins.shape[0], active)
+        rows, replayed = graphs.GRAPHS.trace(_trace_record_rows, origins, directions,
+                                             scene, cfg, rounds, active)
+        count_call(replayed)
+        return rows
 
-        state = _trace_phases(state, scene, cfg, rounds)
-        # Rays that want a straight phase after the last march get one more;
-        # any that would re-enter again are treated as escapes.
-        with span(TRACE_STRAIGHT):
-            state = _straight_phase(state, scene, cfg)
-        status = torch.where(state["status"] == 1, 2, state["status"])
-        state["status"] = status.to(torch.int32)
 
-        with span(TRACE_SHADE):
-            shaded = _shade_deferred(state, scene, cfg, cam_dist)
-            # Classification (reference ray.wgsl:583-595): final-color pixels
-            # composited something or marched at most few_iters_threshold
-            # steps; the other escapes carry (direction, alpha 0).
-            total_iters = state["march_steps"] + state["entered"].to(torch.int32)
-            alpha = state["hit"] | (total_iters <= cfg.few_iters_threshold)
-            return torch.cat([
-                shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
-                torch.stack([state["dx"], state["dy"], state["dz"]]),
-            ])[:, :n]
+def _trace_record_rows(origins: torch.Tensor, directions: torch.Tensor, scene: Scene,
+                       cfg: RenderConfig, rounds: int,
+                       active: torch.Tensor = None) -> torch.Tensor:
+    """The eager trace of :func:`trace_rays_record_rows`, and the body of its
+    CUDA graphs."""
+    n = origins.shape[0]
+    pad = -n % CPU_BATCH_ALIGN if origins.device.type == "cpu" else 0
+    if pad:  # dead lanes, cut off below
+        origins = torch.cat([origins, origins[-1:].expand(pad, 3)])
+        directions = torch.cat([directions, directions[-1:].expand(pad, 3)])
+        live = torch.ones(n, dtype=torch.bool) if active is None else active
+        active = torch.cat([live, torch.zeros(pad, dtype=torch.bool)])
+    bh = scene.black_hole
+    state = _init_state(origins, directions)
+    if active is not None:
+        state["status"] = torch.where(active, state["status"], 2).to(torch.int32)
+    cam_dist = _norm(origins - bh.position)
+
+    state = _trace_phases(state, scene, cfg, rounds)
+    # Rays that want a straight phase after the last march get one more;
+    # any that would re-enter again are treated as escapes.
+    with span(TRACE_STRAIGHT):
+        state = _straight_phase(state, scene, cfg)
+    status = torch.where(state["status"] == 1, 2, state["status"])
+    state["status"] = status.to(torch.int32)
+
+    with span(TRACE_SHADE):
+        shaded = _shade_deferred(state, scene, cfg, cam_dist)
+        # Classification (reference ray.wgsl:583-595): final-color pixels
+        # composited something or marched at most few_iters_threshold
+        # steps; the other escapes carry (direction, alpha 0).
+        total_iters = state["march_steps"] + state["entered"].to(torch.int32)
+        alpha = state["hit"] | (total_iters <= cfg.few_iters_threshold)
+        return torch.cat([
+            shaded[:3], alpha.to(torch.float32).unsqueeze(0), shaded[3:],
+            torch.stack([state["dx"], state["dy"], state["dz"]]),
+        ])[:, :n]
 
 
 def march_batch(scene: Scene, cfg: RenderConfig, width: int, height: int,

@@ -385,8 +385,10 @@ def test_viewer_overflow_stats_endpoint():
 
 def test_frame_report_keys(tmp_path):
     """``profile_trace`` writes the block's trace, which holds the render's
-    span, and its lane counters beside it."""
-    from bhx_torch.profiling import ACTIVE_LANES, LANES, RENDER, profile_trace
+    span, and its counters beside it."""
+    from bhx_torch.profiling import (
+        ACTIVE_LANES, CALLS, GRAPH_REPLAYS, LANES, RENDER, profile_trace,
+    )
 
     _, tscene = _scenes()
     cfg = torch_cfg(FAST_CFG).replace(width=W, height=H, use_ladder=True,
@@ -398,9 +400,11 @@ def test_frame_report_keys(tmp_path):
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert RENDER in {e.get("name") for e in trace["traceEvents"]}
     counts = json.loads((tmp_path / "trace" / "counts.json").read_text())
-    assert set(counts) == {LANES, ACTIVE_LANES}
-    # Level 0 traces 12x7 lanes, all live, and level 1 34x19, some live.
+    assert set(counts) == {LANES, ACTIVE_LANES, CALLS, GRAPH_REPLAYS}
+    # Level 0 traces 12x7 lanes, all live, and level 1 34x19, some live;
+    # on the host no trace replays a graph.
     assert counts[LANES] == 12 * 7 + 34 * 19
+    assert (counts[CALLS], counts[GRAPH_REPLAYS]) == (2, 0)
     assert 12 * 7 <= counts[ACTIVE_LANES] < counts[LANES]
 
 

@@ -4,8 +4,11 @@ masks, and its one launch for all meshes with the merge inside), proof that CUDA
 autograd, and with meshes in the scene), the card's frames against the
 CPU's (and ``bench.parity_check``), the card's gradient against the CPU's
 (and d/d(yaw, pitch) through ``Camera.rotated``), the camera's pose
-methods on the card, and the sharded trace over a world of one NCCL rank.
-Every test here is marked ``gpu`` and skips without a CUDA device.
+methods on the card, the sharded trace over a world of one NCCL rank,
+and the tracer's CUDA graphs replaying the eager trace bit for bit.
+Every test here is marked ``gpu`` and skips without a CUDA device.  Each
+starts with no graph of the tracer kept and no shape seen, so that its
+first trace of a shape runs eagerly.
 
 On a machine with a card (the root conftest.py imports jax, which such a
 machine need not have):
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 import bhx_torch
-from bhx_torch import checks
+from bhx_torch import checks, graphs, tracer
 from bhx_torch.kernels import launch_counts, replay_counts, reset_launch_counts
 from bhx_torch.kernels import march as tmarch
 from bhx_torch.kernels import mesh as tmesh
@@ -40,6 +43,13 @@ from torch_mesh_data import cube_arrays, torus_arrays, write_obj
 _SLOTS = slice(tmarch.OUT_FIXED, tmarch.OUT_FIXED + tmarch.SLOT_ROWS)
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _no_trace_graphs():
+    graphs.GRAPHS.clear()
+    yield
+    graphs.GRAPHS.clear()
 
 
 @pytest.fixture(scope="module")
@@ -566,3 +576,41 @@ def test_mesh_frame_matches_cpu(mesh_scene):
     bad = float((on_card - on_cpu).abs().gt(2e-2).any(-1).float().mean())
     assert bad <= 0.02, bad
     assert float((on_cpu - without).abs().gt(2e-2).any(-1).float().mean()) > 0.05
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("case", ["euler", "rk45", "kerr", "mesh"])
+def test_trace_graph_replays_bit_identical(frame, request, case, masked):
+    """A trace's CUDA graph against the eager trace, over five calls of one
+    shape with the camera's pose, the time, the mass, the disk gain and the
+    mask changed each call: the first call is eager, the second captures and
+    every later one replays; each record equals the eager one bit for bit (a
+    scene value baked into the graph, or a stale input, would show), and a
+    replay advances the launch counts as an eager call does."""
+    scene, cfg = frame
+    if case == "mesh":
+        scene = request.getfixturevalue("mesh_scene")
+    elif case == "kerr":
+        scene, cfg = with_spin(scene, 0.9), cfg.replace(geodesics="kerr")
+    elif case == "rk45":
+        cfg = cfg.replace(integrator=bhx_torch.Integrator.RK45)
+    rng = np.random.default_rng(11)
+    w, h = cfg.ladder_for_output().resolution(1)
+    for i in range(5):
+        yaw, pitch = rng.uniform(-0.3, 0.3, 2)
+        bh = dataclasses.replace(scene.black_hole, mass=scene.black_hole.mass + 0.01 * i)
+        s = dataclasses.replace(scene, camera=scene.camera.rotated(float(yaw), float(pitch)),
+                                time=torch.tensor(1.0 + 0.37 * i, device="cuda"),
+                                black_hole=bh, disk_gain=scene.disk_gain * (1.0 + 0.1 * i))
+        o, d = (t.reshape(-1, 3) for t in tracer.camera_rays(s.camera, w, h))
+        active = torch.tensor(rng.random(w * h) < 0.3, device="cuda") if masked else None
+        reset_launch_counts()
+        want = tracer._trace_record_rows(o, d, s, cfg, tracer.DEFAULT_ROUNDS, active)
+        eager_launches = launch_counts()
+        reset_launch_counts()
+        got, replayed = graphs.GRAPHS.trace(tracer._trace_record_rows, o, d, s, cfg,
+                                            tracer.DEFAULT_ROUNDS, active)
+        torch.cuda.synchronize()
+        assert replayed == (i >= 1) and len(graphs.GRAPHS) == int(i >= 1)
+        assert launch_counts() == eager_launches
+        assert got.shape == want.shape and torch.equal(got, want), i

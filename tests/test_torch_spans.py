@@ -40,6 +40,12 @@ def _spans(fn):
     return out, sorted(spans, key=lambda s: s[1])
 
 
+def _counts(lanes, active, calls=0, replays=0):
+    """``profiling.counts()`` as it should read."""
+    return {profiling.LANES: lanes, profiling.ACTIVE_LANES: active, profiling.CALLS: calls,
+            profiling.GRAPH_REPLAYS: replays}
+
+
 def _named(spans, name):
     return [s for s in spans if s[0] == name]
 
@@ -101,7 +107,7 @@ def test_no_profiler_no_span_and_no_count():
     assert off is profiling.span(profiling.TRACE)
     assert not isinstance(off, torch.profiler.record_function)
     bhx_torch.render(bhx_torch.Scene.default("cpu"), _cfg())
-    assert profiling.counts() == {profiling.LANES: 0, profiling.ACTIVE_LANES: 0}
+    assert profiling.counts() == _counts(0, 0)
 
     def inside():
         assert profiling.recording()
@@ -129,9 +135,10 @@ def test_lane_counters_match_the_ladder():
 
     profiling.reset_counts()
     _spans(lambda: bhx_torch.render(scene, cfg))
-    assert profiling.counts() == {profiling.LANES: lanes, profiling.ACTIVE_LANES: active}
+    # One tracer call a level, none a graph's replay on the host.
+    assert profiling.counts() == _counts(lanes, active, calls=lad.levels)
     profiling.reset_counts()
-    assert profiling.counts() == {profiling.LANES: 0, profiling.ACTIVE_LANES: 0}
+    assert profiling.counts() == _counts(0, 0)
 
 
 def test_masked_sums_fold_when_the_ring_is_full(monkeypatch):
@@ -140,7 +147,7 @@ def test_masked_sums_fold_when_the_ring_is_full(monkeypatch):
     profiling.reset_counts()
     masks = [torch.arange(10) < k for k in range(1, 8)]
     _spans(lambda: [profiling.count_lanes(10, m) for m in masks])
-    assert profiling.counts() == {profiling.LANES: 70, profiling.ACTIVE_LANES: 28}
+    assert profiling.counts() == _counts(70, 28)
     ring, slot = profiling._active_device[torch.device("cpu")]
     assert ring.shape == (3,) and slot == 3
     profiling.reset_counts()
