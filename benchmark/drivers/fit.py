@@ -23,6 +23,23 @@ norms over the reference's norm of that leaf or of the median leaf,
 whichever is larger.  Leaves whose reference gradient is under
 ``leaf_floor`` of the median leaf's (no path to the image, such as the
 spin under the pseudo-Newtonian force) are left out.
+
+A cell on more than one chip runs the same fit over that many ranks, one
+a card, through the program's sharded step (``parallel.train_step`` over
+a ``TileMesh``): each rank traces its band of the frame's rows, the bands
+are gathered, every rank computes the whole frame's loss, and the
+gradients are summed over the ranks.  This process is rank 0: its clock,
+its traced step and its state are the run's.  The other ranks are child
+processes (:mod:`.ranks`, :func:`rank_main`) that get the target's bits
+from rank 0, take their first step with it, and then one step each time
+rank 0 tells them that the window goes on, so that every rank takes the
+same steps.  ``setup_s`` holds their start-up.  The reference takes its
+gradient as the same sum over bands of rows (:mod:`..reference.fit`).
+Once the window has closed the other ranks send back their parameters,
+and ``rank_gap``, the largest absolute difference between any rank's
+parameters and rank 0's, is compared with its limit, 0: every rank
+applies the same summed gradient, so the parameters stay equal to the
+bit.
 """
 
 from __future__ import annotations
@@ -36,6 +53,7 @@ import numpy as np
 import torch
 
 from benchmark import port
+from benchmark.drivers import ranks as ranks_mod
 from benchmark.drivers.common import Outcome, check, log, peak_bytes, reference_side, sync
 from benchmark.reference import fit as ref_fit
 from benchmark.reference import frame as ref_frame
@@ -99,13 +117,82 @@ def step_taken(before: Dict, after: Dict, beta1: float) -> Dict[str, Dict]:
     return dict(grad=grad, change=change)
 
 
+def program(render: Dict, numbers: Dict, keys, lr: float, device):
+    """The program's (settings, scene, fitted parameters, optimizer)."""
+    from bhx_torch import parallel
+
+    cfg = port.render_config(render)
+    scene = port.scene(numbers, device)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in parallel.scene_params(scene).items()}
+    if sorted(params) != sorted(keys):
+        raise RuntimeError(f"the program fits {sorted(params)}, the traffic names {keys}")
+    return cfg, scene, params, parallel.make_optimizer(params, lr)
+
+
+def rank_main(rank: int, world: int, port_: int, device: str, conn, job: Dict) -> None:
+    """Rank ``rank`` of a fit over ``world`` ranks (a child process): the
+    target from rank 0, the first step, then one step for each True that
+    rank 0 sends, each ending in its loss read on the host; at the False,
+    its parameters and its peaks (set-up, window) go back to rank 0."""
+    import torch.distributed as dist
+    from bhx_torch import parallel
+
+    dev = ranks_mod.rank_device(device, rank)
+    mesh = ranks_mod.join(port_, world, rank, dev)
+    target = torch.empty(job["target_shape"], dtype=torch.float32, device=dev)
+    dist.broadcast(target, src=0, group=mesh.group)
+    cfg, scene, params, optimizer = program(job["render"], job["numbers"], job["keys"],
+                                            job["lr"], dev)
+
+    def step() -> float:
+        return float(parallel.train_step(params, optimizer, scene, target, cfg, mesh))
+
+    step()
+    sync(dev)
+    setup_peak = peak_bytes(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    while conn.recv():
+        step()
+    conn.send(dict(params={k: p.detach().cpu().numpy() for k, p in params.items()},
+                   setup_peak=setup_peak, window_peak=peak_bytes(dev)))
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         overrides: Dict = None, capture=None) -> Outcome:
+    traffic = cell.traffic
+    render = {**cell.config["render"], **traffic["render"], **(overrides or {})}
+    ranks = None
+    if cell.chips > 1:
+        # The other ranks start up while this one does.
+        job = dict(render=render, numbers=cell.config["scene"], keys=traffic["params"],
+                   lr=traffic["lr"], target_shape=(render["height"], render["width"], 3))
+        ranks = ranks_mod.Ranks(cell.chips, rank_main, device, job)
+    try:
+        return _run(cell, seed, seconds, trace, device, t0, render, capture, ranks)
+    except Exception as e:
+        reason = None if ranks is None else ranks.reason()
+        if reason is not None:
+            raise RuntimeError(f"a rank failed: {reason}") from e
+        raise
+    finally:
+        if ranks is not None:
+            ranks.close()
+            ranks_mod.leave()
+
+
+def _run(cell, seed: int, seconds: float, trace: bool, device, t0: float, render: Dict,
+         capture, ranks) -> Outcome:
+    import torch.distributed as dist
     from bhx_torch import parallel
 
     traffic = cell.traffic
-    render = {**cell.config["render"], **traffic["render"], **(overrides or {})}
     numbers = cell.config["scene"]
+    mesh = None
+    if ranks is not None:
+        device = ranks_mod.rank_device(device, 0)
+        mesh = ranks_mod.join(ranks.port, cell.chips, 0, device)
     rcfg, rscene = reference_side(render, numbers, device)
     keys = traffic["params"]
     # The device is up before the target's seconds are taken, so that they
@@ -116,18 +203,19 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     target = make_target(rscene, rcfg, traffic, seed, device)
     sync(device)
     target_s = time.perf_counter() - a
+    if mesh is not None:
+        # The frame is a view of its channel-major planes; a collective
+        # sends memory in order, so the rows go out laid out as they read.
+        target = target.contiguous()
+        dist.broadcast(target, src=0, group=mesh.group)
 
-    cfg = port.render_config(render)
-    scene = port.scene(numbers, device)
-    params = {k: v.detach().clone().requires_grad_()
-              for k, v in parallel.scene_params(scene).items()}
-    if sorted(params) != sorted(keys):
-        raise RuntimeError(f"the program fits {sorted(params)}, the traffic names {keys}")
-    optimizer = parallel.make_optimizer(params, traffic["lr"])
+    cfg, scene, params, optimizer = program(render, numbers, keys, traffic["lr"], device)
     beta1 = optimizer.param_groups[0]["betas"][0]
+    # One rank steps as a user of one card does; more go through the mesh.
+    sharded = () if mesh is None else (mesh,)
 
     def step() -> float:
-        return float(parallel.train_step(params, optimizer, scene, target, cfg))
+        return float(parallel.train_step(params, optimizer, scene, target, cfg, *sharded))
 
     losses = [step()]
     # An optimizer that got no gradient holds no first moment.
@@ -141,6 +229,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     start = time.perf_counter()
     setup_s = start - t0 - target_s
     log(f"set-up {setup_s:.1f} s, besides the reference's target {target_s:.1f} s")
+    if ranks is not None:
+        ranks.window(seconds)
     # The state before each of the window's steps, for the step checked
     # later.  A traced run profiles the window's second step, so that the
     # window has unprofiled steps to set against it.
@@ -148,6 +238,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     count, now, stretch_s = 0, start, 0.0
     while True:
         states.append(snapshot(params, optimizer))
+        if ranks is not None:
+            ranks.tell(True)
         if trace and count == 1:
             a = time.perf_counter()
             with capture.stretch(1, dict(kind="fit")):
@@ -162,6 +254,16 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
             break
     states.append(snapshot(params, optimizer))
     window_peak = peak_bytes(device)
+    rank_gap = None
+    if ranks is not None:
+        a = time.perf_counter()
+        others = ranks.stop(False)
+        log(f"{count} steps in {now - start:.3f} s; the other ranks' replies and exit "
+            f"{time.perf_counter() - a:.1f} s")
+        rank_gap = max(float(np.max(np.abs(o["params"][k] - params[k].detach().cpu().numpy())))
+                       for o in others for k in keys)
+        setup_peak = max([setup_peak] + [o["setup_peak"] for o in others])
+        window_peak = max([window_peak] + [o["window_peak"] for o in others])
     if trace:
         capture.info["window_peak_bytes"] = window_peak
         capture.info["unit_s"] = (now - start - stretch_s) / (count - 1)
@@ -174,15 +276,20 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     # state before it.  Window step i is the fit's step i + 2.
     start_params = reference_params(numbers, keys, device)
     ref_start = time.perf_counter()
-    ref = ref_fit.fit_steps(start_params, rscene, target, rcfg, FIRST_STEPS, traffic["lr"])
+    ref = ref_fit.fit_steps(start_params, rscene, target, rcfg, FIRST_STEPS, traffic["lr"],
+                            bands=cell.chips)
     later = random.Random(seed).randrange(FIRST_STEPS - 1, count)
     before = states[later]
     ref_later = ref_fit.step_from(before["params"], before["moments"], rscene, target, rcfg,
-                                  traffic["lr"])
-    first = gaps(dict(losses=losses[:FIRST_STEPS], grad=first_grad,
-                      change={k: states[FIRST_STEPS - 1]["params"][k] - start_params[k]
-                              for k in keys}),
+                                  traffic["lr"], bands=cell.chips)
+    change = {k: states[FIRST_STEPS - 1]["params"][k] - start_params[k] for k in keys}
+    first = gaps(dict(losses=losses[:FIRST_STEPS], grad=first_grad, change=change),
                  dict(ref, grad=ref["first_grad"]), traffic["leaf_floor"])
+    norm = lambda t: float(torch.linalg.vector_norm(t.double()))  # noqa: E731
+    log(f"each leaf's change after {FIRST_STEPS} steps, program / reference, and first "
+        "gradient's norm: " + ", ".join(
+            f"{k} {norm(change[k]):.6g} / {norm(ref['change'][k]):.6g} "
+            f"{norm(ref['first_grad'][k]):.3g}" for k in keys))
     window = gaps(dict(losses=[losses[later + 1]],
                        **step_taken(before, states[later + 1], beta1)),
                   dict(ref_later, losses=[ref_later["loss"]]), traffic["leaf_floor"])
@@ -190,12 +297,19 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         f"{FIRST_STEPS} steps and step {later + 2} {time.perf_counter() - ref_start:.1f} s")
     values = dict(first)
     values.update({f"{m}.window": v for m, v in window.items()})
+    parts = [list(first), [f"{m}.window" for m in window]]
+    if rank_gap is not None:
+        values["rank_gap"] = rank_gap
+        parts.append(["rank_gap"])
     values = {k: (v if np.isfinite(v) else float("inf")) for k, v in values.items()}
+    # Every number is compared: a cell's limits name each, and no other.
+    if set(values) != set(cell.limits):
+        raise RuntimeError(f"a fit on {cell.chips} chip(s) compares {sorted(values)}; "
+                           f"the limits of {cell.name} name {sorted(cell.limits)}")
     checks = {}
     for m, v in values.items():
         checks.update(check(m, v, cell.limits[m]))
-    failed = sum(any(values[m] > cell.limits[m] for m in part)
-                 for part in (list(first), [f"{m}.window" for m in window]))
+    failed = sum(any(values[m] > cell.limits[m] for m in part) for part in parts)
     return Outcome(metrics=dict(setup_s=setup_s, step_s=(now - start) / count),
                    attempted=count + 1, failed=failed, checks=checks,
                    memory_peak_bytes=max(setup_peak, window_peak))

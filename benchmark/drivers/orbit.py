@@ -34,6 +34,7 @@ import torch
 
 from benchmark import port
 from benchmark.drivers.common import Outcome, check, log, peak_bytes, reference_side, sync
+from benchmark.metrics._bound import march_branch
 from benchmark.reference import frame as ref_frame
 from benchmark.reference.scene import posed
 
@@ -143,7 +144,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     stretch_s = 0.0
     while True:
         if trace and k == trace_at:
-            info = dict(kind="orbit", integrator=render["integrator"])
+            # The march's branch, by which the roofline prices its substeps.
+            info = dict(kind="orbit", integrator=march_branch(render))
             a = time.perf_counter()
             with capture.stretch(traffic["trace_frames"], info):
                 for _ in range(traffic["trace_frames"]):

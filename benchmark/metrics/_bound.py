@@ -5,23 +5,30 @@ program cannot move it.
 
 A march launch needs ``steps`` lane-substeps, each SUBSTEP_OPS float
 operations of which SUBSTEP_MUFU run on the special-function unit (rsqrt,
-sqrt, division), counted by hand from the substep with the disk branch
-on: Euler 22 (relative position, angular momentum, r^2) + 32 (step) + 12
-(horizon) + 29 (disk plane) + 11 (advance, closest, budget) = 106, 4 on
-the special-function unit; RK45 22 + 303 (six forces at 18, stage sums
-105, the 4th/5th-order sums and error 51, controller 17, direction and
-position 22) + 12 + 29 + 11 = 377, 12.  Its bytes: each live ray's state
-read once (10 float32 rows) and its record written once (13 fixed rows
-and 4 slots of 7).
+sqrt, division), counted by hand from the substep of its branch with the
+disk branch on: Euler 22 (relative position, angular momentum, r^2) + 32
+(step) + 12 (horizon) + 29 (disk plane) + 11 (advance, closest, budget) =
+106, 4 on the special-function unit; RK45 22 + 303 (six forces at 18,
+stage sums 105, the 4th/5th-order sums and error 51, controller 17,
+direction and position 22) + 12 + 29 + 11 = 377, 12; Kerr 3 (relative
+position) + 4 x 190 (a right-hand side: Kerr-Schild scalars 34,
+null-vector product 7, dx 6, three dH/dx at 47 and 2 arguments) + 119
+(step size 7, stage sums 79, chord 17, capture radius 16) + 29 + 11 = 922,
+4 x 36 + 6 = 150.  Its bytes: each live ray's state read once (10 float32
+rows, 13 with Kerr's momentum) and its record written once (13 fixed rows
+and 4 slots of 7, and Kerr's momentum: 41 or 44 rows).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-SUBSTEP_OPS = {"euler": 106, "rk45": 377}
-SUBSTEP_MUFU = {"euler": 4, "rk45": 12}
-RAY_BYTES = (10 + 13 + 4 * 7) * 4
+# By the march's branch: the integrator under the pseudo-Newtonian force,
+# or "kerr".
+SUBSTEP_OPS = {"euler": 106, "rk45": 377, "kerr": 3 + 4 * 190 + 119 + 29 + 11}
+SUBSTEP_MUFU = {"euler": 4, "rk45": 12, "kerr": 4 * 36 + 6}
+RAY_BYTES = {"euler": (10 + 13 + 4 * 7) * 4, "rk45": (10 + 13 + 4 * 7) * 4,
+             "kerr": (13 + 13 + 4 * 7 + 3) * 4}
 
 # NVIDIA H100 SXM (data sheet, 700 W).  Its 67 TFLOP/s of float32 outside
 # the tensor cores counts a fused multiply-add as two operations; the
@@ -45,8 +52,15 @@ def bound(ops: float, nbytes: float, mufu: float = 0.0) -> Dict:
     return dict(bound_ms=ceilings[ceiling], bound_ceiling=ceiling)
 
 
-def march_bound_ms(integrator: str, live: float, steps: float) -> float:
-    """The bound of one march launch of ``live`` rays that take ``steps``
+def march_branch(render) -> str:
+    """The march's branch of a configuration's ``render`` group: "kerr"
+    under exact Kerr geodesics, else the integrator."""
+    return "kerr" if render.get("geodesics", "pseudo") == "kerr" else render["integrator"]
+
+
+def march_bound_ms(branch: str, live: float, steps: float) -> float:
+    """The bound of one march launch of the branch ``branch`` (see
+    :func:`march_branch`) over ``live`` rays that take ``steps``
     lane-substeps in all."""
-    return bound(steps * SUBSTEP_OPS[integrator], live * RAY_BYTES,
-                 steps * SUBSTEP_MUFU[integrator])["bound_ms"]
+    return bound(steps * SUBSTEP_OPS[branch], live * RAY_BYTES[branch],
+                 steps * SUBSTEP_MUFU[branch])["bound_ms"]

@@ -16,7 +16,7 @@ def render_config(render: Dict):
 
     r = dict(render)
     return bhx_torch.RenderConfig(
-        width=r["width"], height=r["height"], geodesics="pseudo",
+        width=r["width"], height=r["height"], geodesics=r.get("geodesics", "pseudo"),
         integrator=Integrator.RK45 if r["integrator"] == "rk45" else Integrator.EULER,
         step_size=r["step_size"], max_iterations=r["max_iterations"],
         angle_division_threshold=r["angle_division_threshold"],

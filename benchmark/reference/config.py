@@ -12,7 +12,7 @@ from typing import Mapping, Tuple
 class Config:
     width: int
     height: int
-    integrator: str  # "euler" or "rk45"
+    integrator: str  # "euler" or "rk45" (under the pseudo force)
     step_size: float
     max_iterations: int
     angle_division_threshold: float
@@ -42,6 +42,14 @@ class Config:
     fxaa_iterations: int
     fxaa_subpixel_quality: float
     tonemap: bool
+    # "pseudo": the pseudo-Newtonian force under ``integrator``; "kerr":
+    # exact Kerr null geodesics (the Hamiltonian RK4, whatever the
+    # integrator), spin from the scene's black hole.
+    geodesics: str = "pseudo"
+
+    def __post_init__(self):
+        if self.geodesics not in ("pseudo", "kerr"):
+            raise ValueError(f"geodesics must be 'pseudo' or 'kerr', got {self.geodesics!r}")
 
     @staticmethod
     def from_render(render: Mapping) -> "Config":

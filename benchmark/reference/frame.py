@@ -10,7 +10,7 @@ post chain: bloom, mix, ACES, FXAA.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -143,11 +143,33 @@ def post(chw: torch.Tensor, cfg: Config) -> torch.Tensor:
     return chw
 
 
-def render(scene: Scene, cfg: Config, opts: Optional[Dict] = None) -> torch.Tensor:
+def banded_rows(scenes: Sequence[Scene], cfg: Config, opts: Dict) -> torch.Tensor:
+    """The dense (8, height, width) record traced in ``len(scenes)`` bands
+    of ceil(height / bands) rows, band b under ``scenes[b]``, as the ranks
+    of a sharded fit trace theirs."""
+    width, height = cfg.width, cfg.height
+    band = -(-height // len(scenes))
+    parts = []
+    for b, scene in enumerate(scenes):
+        r0, r1 = min(b * band, height), min((b + 1) * band, height)
+        if r1 > r0:
+            o, d = camera_rays(scene.camera, width, height)
+            parts.append(trace_record_rows(o[r0:r1].reshape(-1, 3), d[r0:r1].reshape(-1, 3),
+                                           scene, cfg, opts).reshape(8, r1 - r0, width))
+    return torch.cat(parts, dim=1)
+
+
+def render(scene: Union[Scene, Sequence[Scene]], cfg: Config,
+           opts: Optional[Dict] = None) -> torch.Tensor:
     """The (height, width, 3) float32 frame of ``scene``; ``opts`` as
-    :func:`.tracer.trace_record_rows` takes them."""
+    :func:`.tracer.trace_record_rows` takes them.  A sequence of scenes is
+    a dense frame's bands of rows (:func:`banded_rows`)."""
     opts = {} if opts is None else opts
-    if cfg.use_ladder:
+    if not isinstance(scene, Scene):
+        if cfg.use_ladder:
+            raise ValueError("a frame traced in bands of rows is dense")
+        rows = banded_rows(scene, cfg, opts)
+    elif cfg.use_ladder:
         rows = crop(ladder_rows(scene, cfg, opts), cfg)
     else:
         rows = dense_rows(scene, cfg, cfg.width, cfg.height, opts)

@@ -1,18 +1,22 @@
 """The plain geodesic march: Euler and Cash-Karp RK45 steps under the
-pseudo-Newtonian force, with the disk branch.
+pseudo-Newtonian force, or the exact-Kerr Hamiltonian RK4 step
+(:mod:`.kerr`), with the disk branch.
 
 ``rays`` is a (10, N) float32 tensor of rows px py pz dx dy dz h active
-amount steps_done; ``params`` the (NUM_PARAMS,) vector of
-:func:`pack_params`.  The result is (OUT_FIXED + SLOT_ROWS, N): the 13
-rows of ``_OUT_FIXED``, then K=4 slots of 7 rows (hx hy hz dx dy dz
-valid) recording the first K disk crossings in order.  Lanes that enter
-inactive come back unchanged, with zero counters and slots.
+amount steps_done, then under Kerr the momentum qx qy qz (13 rows);
+``params`` the (NUM_PARAMS,) vector of :func:`pack_params`.  The result is
+(OUT_FIXED + SLOT_ROWS, N): the 13 rows of ``_OUT_FIXED``, then K=4 slots
+of 7 rows (hx hy hz dx dy dz valid) recording the first K disk crossings
+in order, then under Kerr the final momentum qx qy qz (44 rows).  Lanes
+that enter inactive come back unchanged, with zero counters and slots.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from . import kerr
 
 # The Cash-Karp tableau.
 A21 = 1.0 / 5.0
@@ -55,6 +59,8 @@ E1, E2, E3, E4, E5, E6 = (
 )
 
 IN_FIELDS = 10  # px, py, pz, dx, dy, dz, h, active, amount, steps_done
+MOMENTUM_FIELDS = 3  # qx, qy, qz (Kerr)
+MOMENTUM = ("qx", "qy", "qz")
 
 # Scalar parameter vector layout.
 _P = dict(
@@ -80,14 +86,17 @@ CROSS_FIELDS = 7  # hx, hy, hz, dx, dy, dz, valid
 MAX_CROSSINGS = 4
 SLOT_ROWS = CROSS_FIELDS * MAX_CROSSINGS
 
-_EULER, _RK45 = 0, 1
+_EULER, _RK45, _KERR = 0, 1, 2
 # Substeps between the all-done tests, and in each checkpointed segment.
 SEGMENT_STEPS = 32
 
 
-def mode_of(integrator: str) -> int:
-    if integrator not in ("euler", "rk45"):
-        raise ValueError(f"no march for integrator={integrator!r}")
+def mode_of(integrator: str, geodesics: str = "pseudo") -> int:
+    """The march's branch: Kerr runs its own RK4 whatever the integrator."""
+    if geodesics == "kerr":
+        return _KERR
+    if geodesics != "pseudo" or integrator not in ("euler", "rk45"):
+        raise ValueError(f"no march for integrator={integrator!r}, geodesics={geodesics!r}")
     return _EULER if integrator == "euler" else _RK45
 
 
@@ -166,51 +175,60 @@ def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
     """One substep: rebinds the entries of the state dict ``s`` and of
     ``slots`` (a list of K*7 (N,) rows) to new tensors, writing into no
     tensor, so a checkpointed replay recomputes it from its inputs.  Same
-    operations under the branch ``mode`` (_EULER or _RK45)."""
+    operations under the branch ``mode`` (_EULER, _RK45 or _KERR)."""
     bx, by, bz = p["bh_x"], p["bh_y"], p["bh_z"]
     px, py, pz = s["px"], s["py"], s["pz"]
     dx, dy, dz = s["dx"], s["dy"], s["dz"]
     act = s["act"]
 
     rx, ry, rz = px - bx, py - by, pz - bz
-    cxv = ry * dz - rz * dy
-    cyv = rz * dx - rx * dz
-    czv = rx * dy - ry * dx
-    h2 = cxv * cxv + cyv * cyv + czv * czv
-    r2 = rx * rx + ry * ry + rz * rz
-    h_used = s["h"]
-    if mode == _EULER:
-        # Euler: dir += f h; normalize; pos += dir h,
-        # with the force inlined.
-        ir = torch.rsqrt(r2 + 1e-12)
-        ir2 = ir * ir
-        a_s = (-3.0) * p["mass"] * h2 * (ir2 * ir2 * ir)
-        vx = dx + a_s * rx * h_used
-        vy = dy + a_s * ry * h_used
-        vz = dz + a_s * rz * h_used
-        inv = torch.rsqrt(vx * vx + vy * vy + vz * vz + 1e-20)
-        ndx, ndy, ndz = vx * inv, vy * inv, vz * inv
-        npx = px + ndx * h_used
-        npy = py + ndy * h_used
-        npz = pz + ndz * h_used
+    if mode == _KERR:
+        (ndx, ndy, ndz), (npx, npy, npz), nq, h_used, captured = kerr.proposal(s, p)
+        captured = act & captured
         applied = act
-        h_next = h_used
+        h_next = s["h"]
+        # Capture is a terminal hit at t = 0 along the chord.
+        hit_h = captured
+        t_h = torch.where(captured, 0.0, 1e9)
     else:
-        (ndx, ndy, ndz), (npx, npy, npz), h_next, accept = _rk45_proposal(s, p, h2)
-        # A rejected lane keeps its state and retries with h_next.
-        applied = act & accept
+        cxv = ry * dz - rz * dy
+        cyv = rz * dx - rx * dz
+        czv = rx * dy - ry * dx
+        h2 = cxv * cxv + cyv * cyv + czv * czv
+        r2 = rx * rx + ry * ry + rz * rz
+        h_used = s["h"]
+        if mode == _EULER:
+            # Euler: dir += f h; normalize; pos += dir h,
+            # with the force inlined.
+            ir = torch.rsqrt(r2 + 1e-12)
+            ir2 = ir * ir
+            a_s = (-3.0) * p["mass"] * h2 * (ir2 * ir2 * ir)
+            vx = dx + a_s * rx * h_used
+            vy = dy + a_s * ry * h_used
+            vz = dz + a_s * rz * h_used
+            inv = torch.rsqrt(vx * vx + vy * vy + vz * vz + 1e-20)
+            ndx, ndy, ndz = vx * inv, vy * inv, vz * inv
+            npx = px + ndx * h_used
+            npy = py + ndy * h_used
+            npz = pz + ndz * h_used
+            applied = act
+            h_next = h_used
+        else:
+            (ndx, ndy, ndz), (npx, npy, npz), h_next, accept = _rk45_proposal(s, p, h2)
+            # A rejected lane keeps its state and retries with h_next.
+            applied = act & accept
 
-    # Horizon sphere against [pos, pos + ndir * h].
-    half_b = rx * ndx + ry * ndy + rz * ndz
-    c_q = r2 - p["horizon_r2"]
-    disc4 = half_b * half_b - c_q
-    sq = torch.sqrt(torch.clamp(disc4, min=0.0))
-    t1 = -half_b - sq
-    t2 = -half_b + sq
-    v1 = (disc4 > 0.0) & (t1 > 1e-8) & (t1 < h_used)
-    v2 = (disc4 > 0.0) & (t2 > 1e-8) & (t2 < h_used)
-    t_h = torch.where(v1, t1, torch.where(v2, t2, 1e9))
-    hit_h = v1 | v2
+        # Horizon sphere against [pos, pos + ndir * h].
+        half_b = rx * ndx + ry * ndy + rz * ndz
+        c_q = r2 - p["horizon_r2"]
+        disc4 = half_b * half_b - c_q
+        sq = torch.sqrt(torch.clamp(disc4, min=0.0))
+        t1 = -half_b - sq
+        t2 = -half_b + sq
+        v1 = (disc4 > 0.0) & (t1 > 1e-8) & (t1 < h_used)
+        v2 = (disc4 > 0.0) & (t2 > 1e-8) & (t2 < h_used)
+        t_h = torch.where(v1, t1, torch.where(v2, t2, 1e9))
+        hit_h = v1 | v2
 
     if show_disk:
         # Disk annulus plane hit.
@@ -225,6 +243,8 @@ def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
         rr2 = ex * ex + ey * ey + ez * ez
         hit_d = ((t_d > 1e-8) & (t_d < h_used)
                  & (rr2 >= p["d_in2"]) & (rr2 <= p["d_out2"]))
+        # A Kerr capture whose disk plane lies behind the chord (t_d < 0)
+        # is no horizon hit: the lane marches on inside the horizon.
         horizon_first = hit_h & (t_h <= t_d)
         crossing = applied & hit_d & ~horizon_first
     else:
@@ -265,6 +285,9 @@ def _substep(s, p, slots, tex_opacity_min: float, show_disk: bool, mode: int):
     s["dx"] = torch.where(applied, ndx, dx)
     s["dy"] = torch.where(applied, ndy, dy)
     s["dz"] = torch.where(applied, ndz, dz)
+    if mode == _KERR:
+        for name, val in zip(MOMENTUM, nq):
+            s[name] = torch.where(applied, val, s[name])
     ox, oy, oz = s["px"] - bx, s["py"] - by, s["pz"] - bz
     dist2 = ox * ox + oy * oy + oz * oz
     s["closest2"] = torch.where(applied, torch.minimum(s["closest2"], dist2),
@@ -295,7 +318,8 @@ def _scalars(params: torch.Tensor) -> dict:
     return sc
 
 
-# The state rows that the lower-precision control rounds.
+# The state rows that the lower-precision control rounds (and the
+# momentum, under Kerr).
 _ROUNDED = ("px", "py", "pz", "dx", "dy", "dz", "h", "closest2", "amount_ub")
 
 
@@ -308,8 +332,9 @@ def _segment(s, slots, sc, steps: int, args, state_dtype=None):
     for _ in range(steps):
         _substep(s, sc, slots, *args)
         if state_dtype is not None:
-            for k in _ROUNDED:
-                s[k] = s[k].to(state_dtype).to(torch.float32)
+            for k in _ROUNDED + MOMENTUM:
+                if k in s:
+                    s[k] = s[k].to(state_dtype).to(torch.float32)
             slots = [v.to(state_dtype).to(torch.float32) for v in slots]
     return s, slots
 
@@ -365,8 +390,9 @@ def run(rays: torch.Tensor, params: torch.Tensor, max_iterations: int,
     all-done test is a host sync on CUDA.  On the card with no gradient
     the segments replay a CUDA graph (:func:`_graphed`) unless
     ``graphed`` is false."""
-    if rays.shape[0] != IN_FIELDS:
-        raise ValueError(f"expected {IN_FIELDS} ray rows, got {rays.shape[0]}")
+    fin = IN_FIELDS + (MOMENTUM_FIELDS if mode == _KERR else 0)
+    if rays.shape[0] != fin:
+        raise ValueError(f"expected {fin} ray rows, got {rays.shape[0]}")
     sc = _scalars(params)
     px, py, pz, dx, dy, dz, h, act0, amount0, steps0 = rays[:IN_FIELDS].unbind(0)
     zeros = torch.zeros_like(px)
@@ -378,6 +404,8 @@ def run(rays: torch.Tensor, params: torch.Tensor, max_iterations: int,
         closest2=ox * ox + oy * oy + oz * oz,
         count=zeros, amount_ub=amount0, horizon=zeros, exited=zeros,
     )
+    if mode == _KERR:
+        s.update(zip(MOMENTUM, rays[IN_FIELDS:].unbind(0)))
     slots = [zeros] * SLOT_ROWS
     args = (tex_opacity_min, show_disk, mode)
     if graphed and not checkpointed and not torch.is_grad_enabled() \
@@ -398,6 +426,8 @@ def run(rays: torch.Tensor, params: torch.Tensor, max_iterations: int,
     rows[_OUT_FIXED["closest"]] = torch.sqrt(s["closest2"])
     rows[_OUT_FIXED["amount"]] = s["amount_ub"]
     rows += slots
+    if mode == _KERR:
+        rows += [s[k] for k in MOMENTUM]
     return torch.stack(rows)
 
 

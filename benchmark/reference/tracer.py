@@ -8,7 +8,9 @@ the end.  The result is the sky-free record: 8 rows ``cr cg cb alpha
 amount dx dy dz``.
 
 State is a dict of (N,) rows; ``status`` is 0 = needs a straight phase,
-1 = marching, 2 = escaped, 3 = absorbed.
+1 = marching, 2 = escaped, 3 = absorbed.  Under exact Kerr geodesics a ray
+that enters the relativity sphere takes the null momentum along its
+direction there, and each march carries the momentum in and out.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import march
+from . import kerr, march
 from .config import Config
 from .march import CROSS_FIELDS, MAX_CROSSINGS, OUT_FIXED, SLOT_ROWS, _OUT_FIXED
 from .scene import Camera, Scene
@@ -82,6 +84,8 @@ def _init_state(origins: torch.Tensor, directions: torch.Tensor) -> Dict:
         ox=d[:, 0], oy=d[:, 1], oz=d[:, 2],  # original directions (feather)
         hit=false, status=izeros, march_steps=izeros, entered=false,
         h=zeros, closest=zeros,
+        # Conjugate momentum of the Kerr march (zeros under the pseudo force).
+        qx=zeros, qy=zeros, qz=zeros,
         # K crossing slots of CROSS_FIELDS rows each, in crossing order.
         slots=o.new_zeros((MAX_CROSSINGS * CROSS_FIELDS, n)),
         count=zeros,
@@ -158,11 +162,19 @@ def _straight_phase(state: Dict, scene: Scene, cfg: Config) -> Dict:
         closest=torch.where(enters, torch.sqrt(nrx * nrx + nry * nry + nrz * nrz),
                             state["closest"]),
     )
+    if cfg.geodesics == "kerr":
+        # The null momentum along the current direction at the sphere
+        # boundary.
+        q = kerr.null_momentum(torch.stack([nrx, nry, nrz], dim=-1),
+                               torch.stack([dx, dy, dz], dim=-1), bh.mass, bh.spin)
+        for c, name in enumerate(march.MOMENTUM):
+            state[name] = torch.where(enters, q[:, c], state[name])
     return state
 
 
 def _march_inputs(state: Dict, cfg: Config) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(rays (10, N), marching mask) for the march."""
+    """(rays (10, N), or (13, N) with the momentum under Kerr, marching
+    mask) for the march."""
     was = state["status"] == 1
     rows = [
         state["px"], state["py"], state["pz"],
@@ -170,6 +182,8 @@ def _march_inputs(state: Dict, cfg: Config) -> Tuple[torch.Tensor, torch.Tensor]
         state["h"], was.to(torch.float32), state["amount_ub"],
         torch.zeros_like(state["px"]),  # steps already taken (one round)
     ]
+    if cfg.geodesics == "kerr":
+        rows += [state[name] for name in march.MOMENTUM]
     return torch.stack(rows), was
 
 
@@ -180,7 +194,7 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
     rays, was = _march_inputs(state, cfg)
     out = march.run(rays, params, cfg.max_iterations,
                     0.7 if (cfg.show_disk_texture and cfg.show_disk) else 1.0,
-                    cfg.show_disk, march.mode_of(cfg.integrator),
+                    cfg.show_disk, march.mode_of(cfg.integrator, cfg.geodesics),
                     checkpointed=opts.get("checkpointed", False),
                     state_dtype=opts.get("state_dtype"), graphed=opts.get("graphed", True))
     if opts.get("work") is not None:
@@ -238,6 +252,9 @@ def _march_phase(state: Dict, black_hole, params: torch.Tensor,
         status=status,
         true_count=state["true_count"] + out[o["count"]],
     )
+    if cfg.geodesics == "kerr":
+        # The final momentum after the slot rows.
+        state.update(zip(march.MOMENTUM, out[OUT_FIXED + SLOT_ROWS:].unbind(0)))
     return state
 
 

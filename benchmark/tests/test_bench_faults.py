@@ -4,8 +4,9 @@ comparison) on the CPU at a small size, with one fault planted in the
 program each time.  The faults are those each cell can have: a step that
 returns its state unchanged (from the start, or only once the first
 steps are past); half of the batch left out, the mean taken over the
-rest; an answer altered where it is produced.  (The cells run
-on one card, so none has an exchange between cards to leave out.)"""
+rest; an answer altered where it is produced.  (These cells run
+on one card, with no exchange between cards to leave out; the fit over
+ranks has its own faults in ``test_bench_fit_sharded.py``.)"""
 
 import pytest
 import torch
