@@ -48,11 +48,14 @@ LADDER_MASKS = "bhx_torch.ladder.masks"
 # each straight phase, each march phase (its kernel launch and the fold of
 # its output into the state, with the merge of its crossing slots, a
 # TRACE_MERGE span a slot) and the deferred shade with the classification.
+# Under exact Kerr geodesics each straight phase holds a TRACE_KERR_MOMENTUM
+# span: the null momentum at the sphere boundary and its selects.
 # These phases, and the ladder's masks, name the host's time between
 # operations in a trace's breakdown, which looks a few hundred operations
 # back for the range around a gap.
 TRACE = "bhx_torch.trace"
 TRACE_STRAIGHT = "bhx_torch.trace.straight_phase"
+TRACE_KERR_MOMENTUM = "bhx_torch.trace.kerr_momentum"
 TRACE_MARCH = "bhx_torch.trace.march_phase"
 TRACE_MERGE = "bhx_torch.trace.merge"
 TRACE_SHADE = "bhx_torch.trace.shade"

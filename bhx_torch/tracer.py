@@ -44,8 +44,8 @@ from bhx_torch.kernels.march import (
 from bhx_torch.kernels.shade import composite, pack_shade_params
 from bhx_torch.kernels.sky import sky_finalize, sky_rows
 from bhx_torch.profiling import (
-    KERNEL_COMPOSITE, KERNEL_MARCH, KERNEL_MESH, KERNEL_SKY, SKY, TRACE, TRACE_MARCH,
-    TRACE_MERGE, TRACE_SHADE, TRACE_STRAIGHT, count_call, count_lanes, span,
+    KERNEL_COMPOSITE, KERNEL_MARCH, KERNEL_MESH, KERNEL_SKY, SKY, TRACE, TRACE_KERR_MOMENTUM,
+    TRACE_MARCH, TRACE_MERGE, TRACE_SHADE, TRACE_STRAIGHT, count_call, count_lanes, span,
 )
 from bhx_torch.scene import Camera, Scene, const, texture
 from bhx_torch.shading import disk_shade, sample_sky
@@ -215,10 +215,11 @@ def _straight_phase(state: Dict, scene: Scene, cfg: RenderConfig) -> Dict:
     if cfg.geodesics == "kerr":
         # The null momentum along the current direction at the sphere
         # boundary (bhx/tracer.py:307-317).
-        q = kerr.null_momentum(torch.stack([nrx, nry, nrz], dim=-1),
-                               torch.stack([dx, dy, dz], dim=-1), bh.mass, bh.spin)
-        for c, name in enumerate(("qx", "qy", "qz")):
-            state[name] = torch.where(enters, q[:, c], state[name])
+        with span(TRACE_KERR_MOMENTUM):
+            q = kerr.null_momentum(torch.stack([nrx, nry, nrz], dim=-1),
+                                   torch.stack([dx, dy, dz], dim=-1), bh.mass, bh.spin)
+            for c, name in enumerate(("qx", "qy", "qz")):
+                state[name] = torch.where(enters, q[:, c], state[name])
     return state
 
 

@@ -1,8 +1,8 @@
 """The port's spans and lane counters (``bhx_torch.profiling``) on the CPU:
-every span of a ladder frame with the post chain and a mesh, and of a
-train step, nested as the layers are; the lane counters against the
-ladder's own masks; and nothing recorded or counted while no profiler
-records."""
+every span of a ladder frame with the post chain and a mesh, of a Kerr
+frame's straight phases, and of a train step, nested as the layers are;
+the lane counters against the ladder's own masks; and nothing recorded or
+counted while no profiler records."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 import bhx_torch
 from bhx_torch import parallel, profiling
 from bhx_torch.pipeline import _refine_level, _refine_masks, trace_image_record_rows
+from bhx_torch.scene import with_spin
 
 from tests.torch_mesh_data import cube_arrays
 
@@ -98,6 +99,18 @@ def test_ladder_frame_records_every_span():
                                           profiling.POST_FXAA)]
     assert all(_inside(p, render) and p[1] >= sky[2] for p in post)
     assert post[0][2] <= post[1][1] and post[1][2] <= post[2][1]
+
+
+def test_kerr_straight_phases_record_the_momentum_span():
+    scene = with_spin(bhx_torch.Scene.default("cpu"), 0.9)
+    for geodesics, per_phase in (("kerr", 1), ("pseudo", 0)):
+        _, spans = _spans(lambda: bhx_torch.render(scene, _cfg(geodesics=geodesics)))
+        phases = _named(spans, profiling.TRACE_STRAIGHT)
+        momenta = _named(spans, profiling.TRACE_KERR_MOMENTUM)
+        # Three traces (a ladder level each), three straight phases a trace.
+        assert len(phases) == 3 * 3
+        assert len(momenta) == per_phase * len(phases)
+        assert all(sum(_inside(m, p) for p in phases) == 1 for m in momenta)
 
 
 def test_no_profiler_no_span_and_no_count():
