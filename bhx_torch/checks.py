@@ -15,6 +15,11 @@ Tolerances:
   ``max_abs_err == 0.0`` in t, hit, color and normal (it repeats the plain
   traversal's triangle and box tests and the merge operation for
   operation);
+* the Euler adjoint kernel against ``march_replay`` on the card
+  (:func:`compare_march_adjoint`): bit-identical in every ray row and in
+  the mass and disk-normal cotangents, the black hole's position within
+  ADJOINT_BH_REL of the larger of its |want| and a thousandth of the
+  largest (summed in another order), and two calls equal bit for bit;
 * the render's gradient on the card against the CPU's
   (:func:`compare_gradients`): every parameter within 1e-3 of its
   largest entry; so d/d(yaw, pitch) of a render through
@@ -64,6 +69,9 @@ GRAD_REL = 1e-3
 # Pixels whose card and CPU forward values part by more than this are left
 # out of the gradient comparison (the CPU tests' tolerance against bhx).
 GRAD_FWD_ATOL = 1e-5
+# The Euler adjoint's gate on the black hole's position, which it sums in
+# another order than autograd (PERF.md section 6, its limits table).
+ADJOINT_BH_REL = 1e-3
 
 
 def _timed(fn: Callable, reps: int = 1) -> Tuple[torch.Tensor, float]:
@@ -201,6 +209,66 @@ def serial_floor(rays, params, out, march_fn: Callable, reps: int = 10) -> Dict:
     _, ms = _timed(lambda: march_fn(rays[:, j:j + 1].contiguous(), params), reps)
     return dict(serial_floor_ms=ms, floor_steps=float(steps[j]),
                 substep_ns=ms * 1e6 / float(steps[j]))
+
+
+# Float operations of one live lane-substep of the Euler adjoint
+# (csrc/march.cu, euler_adjoint_kernel), counted as SUBSTEP_OPS: the
+# substep twice (the march that lays the checkpoints and the segment's
+# re-march that records it), 2 x 106, and its pullback, 202 (the substep's
+# values again, 62; closest2 and the advance, 30; the normalisation, 24;
+# the force and its rsqrt, 47; the angular momentum, 33; the relative
+# position, 6); a crossing's slot pullback left out.  Of them on the
+# special-function unit: 2 x 4 + 2.
+ADJOINT_SUBSTEP_OPS = 2 * 106 + 202
+ADJOINT_SUBSTEP_MUFU = 2 * 4 + 2
+
+
+def compare_march_adjoint(rays, params, grad_out, cfg: RenderConfig, reps: int = 1,
+                          drop_slots: bool = False) -> Dict:
+    """The Euler adjoint kernel against ``march_replay`` on the same
+    inputs, with its work (the live lanes' substeps, from the forward
+    kernel's ``steps`` row), its bound (:func:`bound`: ADJOINT_SUBSTEP_OPS
+    a lane-substep; the 10 + 41 rows in and 10 out) and the gate's numbers:
+    ``max_abs_err`` and ``diff_frac`` (lanes not bit-equal) of the ray
+    rows, ``param_err`` of the mass and disk normal, ``bh_rel_err`` of the
+    black hole's position.  ``drop_slots`` is the fault control: the kernel
+    gets the cotangent with its slot rows zeroed, the replay the whole one."""
+    kw = march_kwargs(cfg)
+    if march_mod._mode(kw["integrator"], kw["geodesics"]) != march_mod._EULER:
+        raise ValueError("the adjoint kernel is the Euler branch's")
+    akw = {k: kw[k] for k in ("max_iterations", "tex_opacity_min", "show_disk")}
+    g = grad_out.clone()
+    if drop_slots:
+        g[march_mod.OUT_FIXED:march_mod.OUT_FIXED + march_mod.SLOT_ROWS] = 0.0
+    (got_r, got_p), ms = _timed(lambda: march_mod.euler_adjoint(rays, params, g, **akw), reps)
+    again_r, again_p = march_mod.euler_adjoint(rays, params, g, **akw)
+    (want_r, want_p), plain_ms = _timed(
+        lambda: march_mod.march_replay(rays, params, grad_out, **kw))
+    n = rays.shape[1]
+    exact = [march_mod._P[k] for k in ("mass", "disk_nx", "disk_ny", "disk_nz")]
+    bh = [march_mod._P[k] for k in ("bh_x", "bh_y", "bh_z")]
+    want_bh = want_p[bh].double()
+    floor = max(float(want_bh.abs().max()) * 1e-3, 1e-30)
+    bh_err = ((got_p[bh].double() - want_bh).abs() / want_bh.abs().clamp_min(floor)).nan_to_num(
+        nan=float("inf"))
+    out = march_mod.march(rays, params, **kw)
+    rows = march_mod._OUT_FIXED
+    live = (rays[7] > 0.5) & (rays[9] < params[march_mod._P["budget"]])
+    total = float(out[rows["steps"]].double().sum())
+    r = dict(n=n, live=int(live.sum()), steps_sum=total,
+             over_k=int((out[rows["count"]] > march_mod.MAX_CROSSINGS).sum()),
+             horizon_hits=int(out[rows["horizon"]].sum()),
+             **bound(total * ADJOINT_SUBSTEP_OPS, (2 * march_mod.IN_FIELDS + grad_out.shape[0])
+                     * 4.0 * n, total * ADJOINT_SUBSTEP_MUFU),
+             max_abs_err=_max_abs_err(got_r, want_r),
+             diff_frac=float((got_r != want_r).any(0).double().mean()) if n else 0.0,
+             param_err=float((got_p[exact] - want_p[exact]).abs().max()),
+             bh_rel_err=float(bh_err.max()),
+             bit_equal=bool(torch.equal(again_r, got_r) and torch.equal(again_p, got_p)),
+             ms=ms, plain_ms=plain_ms)
+    r["ok"] = (r["max_abs_err"] == 0.0 and r["param_err"] == 0.0
+               and r["bh_rel_err"] <= ADJOINT_BH_REL and r["bit_equal"])
+    return r
 
 
 # Operations of the shade and sky kernels (csrc/shade.cu, csrc/sky.cu,

@@ -352,8 +352,9 @@ __device__ __forceinline__ void store_ray(const Ray& s, float* __restrict__ out,
 }
 
 // One substep of a live ray; a disk crossing is written to its slot of
-// lane i at once.  Returns whether the ray marches on.
-template <int kMode>
+// lane i at once (with kRecord; the adjoint's re-march records none).
+// Returns whether the ray marches on.
+template <int kMode, bool kRecord = true>
 __device__ __forceinline__ bool substep(Ray& s, const Consts& c,
                                         float* __restrict__ out, int64_t n,
                                         int64_t i) {
@@ -517,7 +518,7 @@ __device__ __forceinline__ bool substep(Ray& s, const Consts& c,
     if (applied && hit_d && !horizon_first) {
       // Record the crossing in the next free slot (crossings past the
       // K-th are counted, not recorded).
-      if (s.count < static_cast<float>(kMaxCrossings)) {
+      if (kRecord && s.count < static_cast<float>(kMaxCrossings)) {
         float* slot = out + (kOutFixed + static_cast<int>(s.count) * kCrossFields) * n + i;
         slot[0 * n] = hx;
         slot[1 * n] = hy;
@@ -801,6 +802,453 @@ cudaError_t launch(const float* rays, const float* params, float* out, int* queu
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The Euler march's adjoint: its vector-Jacobian product, for the backward
+// pass of bhx_torch/kernels/march.py:_March under the Euler branch.
+//
+// Replaces no Pallas kernel.  It is the counterpart of
+// bhx/kernels/march_grad.py:_march_bwd, a jax.vjp of march_jnp under remat
+// that XLA compiles into one fused scan, and computes what the plain
+// bhx_torch/kernels/march.py:march_replay computes under autograd, bit for
+// bit in every ray row and in the mass and disk-normal cotangents: the
+// same operations, and each cotangent summed from its uses in the order
+// autograd's engine sums them (the reverse of the order the uses were
+// made in).  Masks carry none, the transmission bound's inputs are
+// detached (amount only scales by each crossing's 1 - op_lb), a slot's
+// cotangent enters at the substep that wrote it, closest2's minimum halves
+// its cotangent at a tie, and the clamped disk denominator passes none.
+// The parameters' cotangents are sums over lanes: each substep's per-lane
+// terms of mass and of the disk normal go to a buffer, which the wrapper
+// sums with torch's own reduction, as autograd does, and
+// euler_adjoint_accumulate_kernel adds the sums in the engine's order.
+// The black hole's position, which no fit moves, is summed here in a fixed
+// order (euler_adjoint_sum_kernel): equal to the replay's to rounding.
+//
+// What bounds it on the card (the euler.fit cell's dense 1918x1081 frame,
+// 2,073,358 lanes all live, 400 iterations, an NVIDIA H100): operations.
+// A live lane-substep costs the substep twice (~106 float operations each:
+// the march that lays the checkpoints, and its segment's re-march that
+// records it) and its pullback once (~202: the substep's values again,
+// then autograd's operations on them), ~414 in all, 10 of them on the
+// special-function unit, each add and multiply alone (--fmad=false).
+// Device memory: the 10 + 41 rows in and 10 out; per lane-substep its
+// 8-word record through local memory, written and read back once (64 B),
+// and 7 words of parameter terms, written once and read once by the sums;
+// 8 words of checkpoint every 32 substeps and 12 of cotangent state each
+// segment.
+//
+// What the design does about it: a lane a thread, in registers, the
+// substeps in segments of kAdjSegment.  The dead-lane pass
+// (euler_adjoint_dead_kernel) writes the lanes that enter inactive.  The
+// checkpoint pass (euler_adjoint_checkpoint_kernel) marches each live lane
+// with the forward's substep (the same function and operations, so every
+// discrete decision -- the budget, the horizon, each crossing and its
+// slot, the exit -- is the forward kernel's), keeping a checkpoint each
+// segment and its substep count.  Then one launch a segment, from the
+// last (euler_adjoint_kernel): each lane re-marches its segment from the
+// checkpoint into a record in local memory and pulls its cotangent state
+// back through it, substep by substep.  The finish pass
+// (euler_adjoint_finish_kernel) adds the ray's first closest2 and writes
+// its rows.  Nothing depends on which thread runs which lane, and every
+// sum has a fixed order, so a call's result is the same bit for bit from
+// run to run.  No kernel name here starts with "march": device time of
+// march* kernels is the forward's.
+
+constexpr int kAdjBlock = 128;
+// Substeps a segment (bhx_torch/kernels/march.py:SEGMENT_STEPS).
+constexpr int kAdjSegment = 32;
+// A checkpoint: px py pz dx dy dz closest2 count.
+constexpr int kCkptFields = 8;
+// A substep's record: its input px py pz dx dy dz closest2, and its
+// crossing (the slot's index, the count before it; -1 without one).
+constexpr int kTapeFields = 8;
+// Per-lane parameter terms of a substep, in the order the accumulation
+// reads them: mass (its m3 = -3 mass), then each normal component's
+// (q . n) and (n . ndir) terms.
+constexpr int kAdjTerms = 7;
+constexpr int kSumBlock = 1024;
+
+// A live lane's cotangent state between substeps, 12 rows in device
+// memory between segments: the position after the substep less its last
+// use (sx sy sz), the direction (dx dy dz), closest2, amount, h, and its
+// black-hole position terms (bx by bz).
+struct Adj {
+  float sx, sy, sz, dx, dy, dz, c2, amount, h, bx, by, bz;
+};
+
+__device__ __forceinline__ Adj load_adj(const float* __restrict__ adj, int64_t l, int64_t c) {
+  const float* p = adj + c;
+  return Adj{p[0 * l], p[1 * l], p[2 * l], p[3 * l],  p[4 * l],  p[5 * l],
+             p[6 * l], p[7 * l], p[8 * l], p[9 * l], p[10 * l], p[11 * l]};
+}
+
+__device__ __forceinline__ void store_adj(const Adj& a, float* __restrict__ adj, int64_t l,
+                                          int64_t c) {
+  float* p = adj + c;
+  p[0 * l] = a.sx;
+  p[1 * l] = a.sy;
+  p[2 * l] = a.sz;
+  p[3 * l] = a.dx;
+  p[4 * l] = a.dy;
+  p[5 * l] = a.dz;
+  p[6 * l] = a.c2;
+  p[7 * l] = a.amount;
+  p[8 * l] = a.h;
+  p[9 * l] = a.bx;
+  p[10 * l] = a.by;
+  p[11 * l] = a.bz;
+}
+
+// The rows of lane i from its cotangent state: the position's last use is
+// the first closest2, |pos - b|^2 (or, for a dead lane, the closest row).
+__device__ __forceinline__ void store_rows(const Adj& a, float ox, float oy, float oz,
+                                           float* __restrict__ grad_rays,
+                                           float* __restrict__ partials, int64_t n,
+                                           int64_t i) {
+  const float gox = a.c2 * ox + a.c2 * ox;
+  const float goy = a.c2 * oy + a.c2 * oy;
+  const float goz = a.c2 * oz + a.c2 * oz;
+  grad_rays[0 * n + i] = a.sx + gox;
+  grad_rays[1 * n + i] = a.sy + goy;
+  grad_rays[2 * n + i] = a.sz + goz;
+  grad_rays[3 * n + i] = a.dx;
+  grad_rays[4 * n + i] = a.dy;
+  grad_rays[5 * n + i] = a.dz;
+  grad_rays[6 * n + i] = a.h;
+  grad_rays[7 * n + i] = 0.0f;
+  grad_rays[8 * n + i] = a.amount;
+  grad_rays[9 * n + i] = 0.0f;
+  partials[0 * n + i] = a.bx - gox;
+  partials[1 * n + i] = a.by - goy;
+  partials[2 * n + i] = a.bz - goz;
+}
+
+// The cotangents of the output rows: pos, dir, h, amount as they are,
+// closest's as closest2's (sqrt's rule, grad / (2 result)).
+__device__ __forceinline__ Adj output_adj(const float* __restrict__ grad_out, float closest2,
+                                          int64_t n, int64_t i) {
+  Adj a;
+  a.sx = grad_out[kOPx * n + i];
+  a.sy = grad_out[kOPy * n + i];
+  a.sz = grad_out[kOPz * n + i];
+  a.dx = grad_out[kODx * n + i];
+  a.dy = grad_out[kODy * n + i];
+  a.dz = grad_out[kODz * n + i];
+  a.c2 = grad_out[kOClosest * n + i] / (2.0f * sqrtf(closest2));
+  a.amount = grad_out[kOAmount * n + i];
+  a.h = grad_out[kOH * n + i];
+  a.bx = a.by = a.bz = 0.0f;
+  return a;
+}
+
+// One applied Euler substep pulled back, by autograd's operations on the
+// plain substep (march.py:_substep) in its engine's order: ``t`` is the
+// substep's record, ``a`` the cotangent state after it on entry and before
+// it on return, ``terms`` (stride ``ts``) its 7 per-lane parameter terms.
+__device__ __forceinline__ void euler_substep_adjoint(const float* t, float h,
+                                                      const Consts& c,
+                                                      const float* __restrict__ grad_out,
+                                                      int64_t n, int64_t i, Adj& a,
+                                                      float* __restrict__ terms, int64_t ts) {
+  const float bx = c.bx, by = c.by, bz = c.bz;
+  const float px = t[0], py = t[1], pz = t[2], dx = t[3], dy = t[4], dz = t[5];
+  // The substep's values, by substep<kEuler>'s operations.
+  const float rx = px - bx, ry = py - by, rz = pz - bz;
+  const float cxv = ry * dz - rz * dy;
+  const float cyv = rz * dx - rx * dz;
+  const float czv = rx * dy - ry * dx;
+  const float h2 = cxv * cxv + cyv * cyv + czv * czv;
+  const float r2 = rx * rx + ry * ry + rz * rz;
+  const float ir = rsqrtf(r2 + 1e-12f);
+  const float ir2 = ir * ir;
+  const float g = c.m3 * h2;
+  const float ir4 = ir2 * ir2;
+  const float k5 = ir4 * ir;
+  const float a_s = g * k5;
+  const float wx = a_s * rx, wy = a_s * ry, wz = a_s * rz;
+  const float vx = dx + wx * h, vy = dy + wy * h, vz = dz + wz * h;
+  const float inv = rsqrtf(vx * vx + vy * vy + vz * vz + 1e-20f);
+  const float ndx = vx * inv, ndy = vy * inv, ndz = vz * inv;
+  const float npx = px + ndx * h, npy = py + ndy * h, npz = pz + ndz * h;
+
+  // closest2' = minimum(closest2, |pos' - b|^2): torch.minimum's rule.
+  const float ox = npx - bx, oy = npy - by, oz = npz - bz;
+  const float dist2 = ox * ox + oy * oy + oz * oz;
+  float g_d2 = 0.0f;
+  if (t[6] == dist2) {
+    g_d2 = a.c2 / 2.0f;
+    a.c2 = g_d2;
+  } else if (t[6] > dist2) {
+    g_d2 = a.c2;
+    a.c2 = 0.0f;
+  }
+  const float gox = g_d2 * ox + g_d2 * ox;
+  const float goy = g_d2 * oy + g_d2 * oy;
+  const float goz = g_d2 * oz + g_d2 * oz;
+  a.bx -= gox;
+  a.by -= goy;
+  a.bz -= goz;
+  // pos' = np (its last use, |pos' - b|^2, added), dir' = n.
+  const float gnpx = a.sx + gox, gnpy = a.sy + goy, gnpz = a.sz + goz;
+  float gndx = a.dx, gndy = a.dy, gndz = a.dz;
+  float spx = 0.0f, spy = 0.0f, spz = 0.0f;
+  float tm[kAdjTerms] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+
+  const float code = t[7];
+  if (c.show_disk && code >= 0.0f) {
+    // A crossing: its transmission factor on amount and, where it has a
+    // slot, the slot's cotangent through hx = pos + n t_d and n.
+    float denom = c.nx * ndx + c.ny * ndy + c.nz * ndz;
+    const bool clamped = fabsf(denom) < 1e-12f;
+    if (clamped) denom = 1e-12f;
+    const float qx = bx - px, qy = by - py, qz = bz - pz;
+    const float num = qx * c.nx + qy * c.ny + qz * c.nz;
+    const float t_d = num / denom;
+    const float hx = px + ndx * t_d, hy = py + ndy * t_d, hz = pz + ndz * t_d;
+    const float ex = hx - bx, ey = hy - by, ez = hz - bz;
+    const float rr2 = ex * ex + ey * ey + ez * ez;
+    const float irr = rsqrtf(rr2 + 1e-20f);
+    const float rr = rr2 * irr;
+    float dens = 1.0f - rr * c.inv_d_out;
+    const float tt = fminf(fmaxf(rr - c.d_in, 0.0f), 1.0f);
+    dens = dens * (tt * tt * (3.0f - 2.0f * tt));
+    dens = fmaxf(dens * sqrtf(irr), 0.0f);
+    const float x = 30.0f * dens;
+    const float od_lb = x < 1.0f ? x * x : x;
+    const float op_lb = fminf(fmaxf(od_lb * 0.2f, 0.0f), 1.0f) * c.tex_opacity_min;
+    a.amount = a.amount * (1.0f - op_lb);
+    const int k = static_cast<int>(code);
+    if (k < kMaxCrossings) {
+      const float* gs = grad_out + (kOutFixed + k * kCrossFields) * n + i;
+      const float ghx = gs[0 * n], ghy = gs[1 * n], ghz = gs[2 * n];
+      const float g_td = (ghz * ndz + ghy * ndy) + ghx * ndx;
+      const float g_num = g_td / denom;
+      const float g_den = clamped ? 0.0f : -g_td * ((num / denom) / denom);
+      const float gqx = g_num * c.nx, gqy = g_num * c.ny, gqz = g_num * c.nz;
+      tm[1] = g_num * qx;
+      tm[2] = g_den * ndx;
+      tm[3] = g_num * qy;
+      tm[4] = g_den * ndy;
+      tm[5] = g_num * qz;
+      tm[6] = g_den * ndz;
+      a.bx += gqx;
+      a.by += gqy;
+      a.bz += gqz;
+      gndx = (((gndx + gs[3 * n]) + ghx * t_d) + g_den * c.nx);
+      gndy = (((gndy + gs[4 * n]) + ghy * t_d) + g_den * c.ny);
+      gndz = (((gndz + gs[5 * n]) + ghz * t_d) + g_den * c.nz);
+      spx = ghx + (-gqx);
+      spy = ghy + (-gqy);
+      spz = ghz + (-gqz);
+    }
+  }
+  // np = pos + n h.
+  gndx = gndx + gnpx * h;
+  gndy = gndy + gnpy * h;
+  gndz = gndz + gnpz * h;
+  float gh = ((a.h + gnpz * ndz) + gnpy * ndy) + gnpx * ndx;
+  // n = v rsqrt(|v|^2 + 1e-20).
+  const float g_inv = (gndz * vz + gndy * vy) + gndx * vx;
+  const float g_q = (g_inv * -0.5f) * ((inv * inv) * inv);
+  const float gvx = (gndx * inv + g_q * vx) + g_q * vx;
+  const float gvy = (gndy * inv + g_q * vy) + g_q * vy;
+  const float gvz = (gndz * inv + g_q * vz) + g_q * vz;
+  // v = dir + w h, w = a_s r.
+  gh = ((gh + gvz * wz) + gvy * wy) + gvx * wx;
+  const float gwx = gvx * h, gwy = gvy * h, gwz = gvz * h;
+  const float g_as = (gwz * rz + gwy * ry) + gwx * rx;
+  // a_s = (m3 h2) k5, k5 = (ir2 ir2) ir, ir2 = ir ir, ir = rsqrt(r2 + 1e-12).
+  const float g_g = g_as * k5;
+  const float g_k5 = g_as * g;
+  tm[0] = g_g * h2;
+  const float g_h2 = g_g * c.m3;
+  const float g_ir4 = g_k5 * ir;
+  const float g_ir2 = g_ir4 * ir2 + g_ir4 * ir2;
+  const float g_ir = (g_k5 * ir4 + g_ir2 * ir) + g_ir2 * ir;
+  const float g_r2 = (g_ir * -0.5f) * ((ir * ir) * ir);
+  // h2 = |r x dir|^2: cxv = ry dz - rz dy, cyv = rz dx - rx dz, czv = rx dy - ry dx.
+  const float gcx = g_h2 * cxv + g_h2 * cxv;
+  const float gcy = g_h2 * cyv + g_h2 * cyv;
+  const float gcz = g_h2 * czv + g_h2 * czv;
+  const float grx = (((gwx * a_s + g_r2 * rx) + g_r2 * rx) + gcz * dy) + (-gcy) * dz;
+  const float gry = (((gwy * a_s + g_r2 * ry) + g_r2 * ry) + (-gcz) * dx) + gcx * dz;
+  const float grz = (((gwz * a_s + g_r2 * rz) + g_r2 * rz) + gcy * dx) + (-gcx) * dy;
+  a.dx = (gvx + (-gcz) * ry) + gcy * rz;
+  a.dy = (gvy + gcz * rx) + (-gcx) * rz;
+  a.dz = (gvz + (-gcy) * rx) + gcx * ry;
+  // r = pos - b.
+  a.sx = (spx + gnpx) + grx;
+  a.sy = (spy + gnpy) + gry;
+  a.sz = (spz + gnpz) + grz;
+  a.bx -= grx;
+  a.by -= gry;
+  a.bz -= grz;
+  a.h = gh;
+#pragma unroll
+  for (int k = 0; k < kAdjTerms; ++k) terms[k * ts] = tm[k];
+}
+
+__device__ __forceinline__ void save_checkpoint(float* __restrict__ ck, int64_t l, int seg,
+                                                const Ray& s) {
+  float* p = ck + static_cast<int64_t>(seg) * kCkptFields * l;
+  p[0 * l] = s.px;
+  p[1 * l] = s.py;
+  p[2 * l] = s.pz;
+  p[3 * l] = s.dx;
+  p[4 * l] = s.dy;
+  p[5 * l] = s.dz;
+  p[6 * l] = s.closest2;
+  p[7 * l] = s.count;
+}
+
+__device__ __forceinline__ void load_checkpoint(const float* __restrict__ ck, int64_t l,
+                                                int seg, Ray& s) {
+  const float* p = ck + static_cast<int64_t>(seg) * kCkptFields * l;
+  s.px = p[0 * l];
+  s.py = p[1 * l];
+  s.pz = p[2 * l];
+  s.dx = p[3 * l];
+  s.dy = p[4 * l];
+  s.dz = p[5 * l];
+  s.closest2 = p[6 * l];
+  s.count = p[7 * l];
+  s.steps = static_cast<float>(seg * kAdjSegment);
+  s.horizon = s.exited = 0.0f;
+}
+
+// The lanes that enter inactive: their cotangent passes through, as
+// march_replay's zero-step batch gives it.
+__global__ void __launch_bounds__(kAdjBlock) euler_adjoint_dead_kernel(
+    const float* __restrict__ rays, const float* __restrict__ params,
+    const float* __restrict__ grad_out, float* __restrict__ grad_rays,
+    float* __restrict__ partials, int64_t n, int max_iterations) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n || is_live(rays, params, n, i, max_iterations)) return;
+  const float ox = rays[0 * n + i] - params[kBhX];
+  const float oy = rays[1 * n + i] - params[kBhY];
+  const float oz = rays[2 * n + i] - params[kBhZ];
+  store_rows(output_adj(grad_out, ox * ox + oy * oy + oz * oz, n, i), ox, oy, oz, grad_rays,
+             partials, n, i);
+}
+
+// Each live lane c (ray lanes[c]) marched to its end: a checkpoint each
+// segment, its substep count, and its cotangent state from the output's.
+__global__ void __launch_bounds__(kAdjBlock) euler_adjoint_checkpoint_kernel(
+    const float* __restrict__ rays, const float* __restrict__ params,
+    const float* __restrict__ grad_out, const int* __restrict__ lanes, int64_t l,
+    float* __restrict__ checkpoints, int* __restrict__ steps, float* __restrict__ adj,
+    int64_t n, int max_iterations, float tex_opacity_min, int show_disk) {
+  const int64_t c = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (c >= l) return;
+  const Consts k = load_consts<kEuler>(params, max_iterations, tex_opacity_min, show_disk);
+  const int64_t i = lanes[c];
+  Ray s = load_ray<kEuler>(rays, n, i, k);
+  int done = 0;
+  for (bool more = true; more; ++done) {
+    if (done % kAdjSegment == 0) save_checkpoint(checkpoints + c, l, done / kAdjSegment, s);
+    more = substep<kEuler, false>(s, k, nullptr, n, i);
+  }
+  steps[c] = done;
+  store_adj(output_adj(grad_out, s.closest2, n, i), adj, l, c);
+}
+
+// Segment ``seg`` of every live lane pulled back: re-marched from its
+// checkpoint into a record, then each substep's adjoint from the last.
+// terms[(j * kAdjTerms + u) * ts + c] holds lane c's term u of the
+// segment's substep j, 0 past the lane's end.
+__global__ void __launch_bounds__(kAdjBlock) euler_adjoint_kernel(
+    const float* __restrict__ rays, const float* __restrict__ params,
+    const float* __restrict__ grad_out, const int* __restrict__ lanes, int64_t l,
+    const float* __restrict__ checkpoints, const int* __restrict__ steps,
+    float* __restrict__ adj, float* __restrict__ terms, int64_t ts, int seg, int64_t n,
+    int max_iterations, float tex_opacity_min, int show_disk) {
+  const int64_t c = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (c >= l) return;
+  const int len = min(kAdjSegment, steps[c] - seg * kAdjSegment);
+  for (int j = len > 0 ? len : 0; j < kAdjSegment; ++j)
+    for (int u = 0; u < kAdjTerms; ++u) terms[(j * kAdjTerms + u) * ts + c] = 0.0f;
+  if (len <= 0) return;
+  const Consts k = load_consts<kEuler>(params, max_iterations, tex_opacity_min, show_disk);
+  const int64_t i = lanes[c];
+  Ray s = load_ray<kEuler>(rays, n, i, k);
+  load_checkpoint(checkpoints + c, l, seg, s);
+  float tape[kAdjSegment][kTapeFields];
+  for (int j = 0; j < len; ++j) {
+    float* t = tape[j];
+    t[0] = s.px;
+    t[1] = s.py;
+    t[2] = s.pz;
+    t[3] = s.dx;
+    t[4] = s.dy;
+    t[5] = s.dz;
+    t[6] = s.closest2;
+    const float count = s.count;
+    substep<kEuler, false>(s, k, nullptr, n, i);
+    t[7] = s.count != count ? count : -1.0f;
+  }
+  Adj a = load_adj(adj, l, c);
+  for (int j = len - 1; j >= 0; --j)
+    euler_substep_adjoint(tape[j], s.h, k, grad_out, n, i, a,
+                          terms + static_cast<int64_t>(j) * kAdjTerms * ts + c, ts);
+  store_adj(a, adj, l, c);
+}
+
+// Each live lane's rows, its first closest2 added.
+__global__ void __launch_bounds__(kAdjBlock) euler_adjoint_finish_kernel(
+    const float* __restrict__ rays, const float* __restrict__ params,
+    const int* __restrict__ lanes, int64_t l, const float* __restrict__ adj,
+    float* __restrict__ grad_rays, float* __restrict__ partials, int64_t n) {
+  const int64_t c = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (c >= l) return;
+  const int64_t i = lanes[c];
+  store_rows(load_adj(adj, l, c), rays[0 * n + i] - params[kBhX],
+             rays[1 * n + i] - params[kBhY], rays[2 * n + i] - params[kBhZ], grad_rays,
+             partials, n, i);
+}
+
+// The mass and disk-normal cotangents from the substeps' sums over lanes
+// (sums[t * kAdjTerms + u], t < steps): added from the last substep to the
+// first, each substep's m3 sum times -3, and for each normal component its
+// (q . n) sum then its (n . ndir) sum, as autograd's engine adds them.
+__global__ void euler_adjoint_accumulate_kernel(const float* __restrict__ sums, int steps,
+                                                int show_disk, float* __restrict__ out) {
+  if (threadIdx.x > 3 || steps <= 0 || (threadIdx.x > 0 && !show_disk)) return;
+  const int p = threadIdx.x;
+  float acc = 0.0f;
+  for (int t = steps - 1; t >= 0; --t) {
+    const float* st = sums + static_cast<int64_t>(t) * kAdjTerms;
+    if (p == 0) {
+      const float m = st[0] * -3.0f;
+      acc = t == steps - 1 ? m : acc + m;
+    } else {
+      acc = t == steps - 1 ? st[2 * p - 1] : acc + st[2 * p - 1];
+      acc = acc + st[2 * p];
+    }
+  }
+  out[p == 0 ? kMass : kDiskNx + p - 1] = acc;
+}
+
+// The black hole's position cotangent: row blockIdx.x of the per-lane
+// terms summed in double in a fixed order (strided by thread, then a tree).
+__global__ void __launch_bounds__(kSumBlock) euler_adjoint_sum_kernel(
+    const float* __restrict__ partials, float* __restrict__ grad_params, int64_t n) {
+  __shared__ double part[kSumBlock];
+  const float* row = partials + blockIdx.x * n;
+  double sum = 0.0;
+  for (int64_t i = threadIdx.x; i < n; i += kSumBlock) sum += row[i];
+  part[threadIdx.x] = sum;
+  __syncthreads();
+  for (int w = kSumBlock / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) grad_params[kBhX + blockIdx.x] = static_cast<float>(part[0]);
+}
+
+unsigned adj_blocks(int64_t n) {
+  return static_cast<unsigned>((n + kAdjBlock - 1) / kAdjBlock);
+}
+
 }  // namespace
 
 // queue: n int32 of scratch; counters: 3 int32, zero on entry (the
@@ -827,6 +1275,79 @@ extern "C" int bhx_march(const float* rays, const float* params, float* out,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The Euler march's adjoint, in steps the wrapper sequences
+// (bhx_torch/kernels/march.py:euler_adjoint).  Shapes: rays (10, n),
+// grad_out (41, n), grad_rays (10, n), partials (3, n) of scratch; lanes
+// (l) int32, the live lanes in order; checkpoints ceil(max_iterations /
+// 32) x 8 x l floats; steps (l) int32; adj (12, l) floats; terms (32 x 7,
+// ts) floats with ts >= l; sums (steps, 7) floats; gp (21,) floats.
+
+// The dead lanes' rows and terms.
+extern "C" int bhx_euler_adjoint_dead(const float* rays, const float* params,
+                                      const float* grad_out, float* grad_rays,
+                                      float* partials, int64_t n, int max_iterations,
+                                      cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(n < 0 ? cudaErrorInvalidValue : cudaSuccess);
+  euler_adjoint_dead_kernel<<<adj_blocks(n), kAdjBlock, 0, stream>>>(
+      rays, params, grad_out, grad_rays, partials, n, max_iterations);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The live lanes' checkpoints, substep counts and cotangent states.
+extern "C" int bhx_euler_adjoint_checkpoint(const float* rays, const float* params,
+                                            const float* grad_out, const int* lanes,
+                                            int64_t l, float* checkpoints, int* steps,
+                                            float* adj, int64_t n, int max_iterations,
+                                            float tex_opacity_min, int show_disk,
+                                            cudaStream_t stream) {
+  if (l <= 0) return static_cast<int>(l < 0 ? cudaErrorInvalidValue : cudaSuccess);
+  euler_adjoint_checkpoint_kernel<<<adj_blocks(l), kAdjBlock, 0, stream>>>(
+      rays, params, grad_out, lanes, l, checkpoints, steps, adj, n, max_iterations,
+      tex_opacity_min, show_disk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Segment seg pulled back, its parameter terms into terms.
+extern "C" int bhx_euler_adjoint_segment(const float* rays, const float* params,
+                                         const float* grad_out, const int* lanes, int64_t l,
+                                         const float* checkpoints, const int* steps,
+                                         float* adj, float* terms, int64_t ts, int seg,
+                                         int64_t n, int max_iterations, float tex_opacity_min,
+                                         int show_disk, cudaStream_t stream) {
+  if (l <= 0 || ts < l) return static_cast<int>(l < 0 || ts < l ? cudaErrorInvalidValue
+                                                                   : cudaSuccess);
+  euler_adjoint_kernel<<<adj_blocks(l), kAdjBlock, 0, stream>>>(
+      rays, params, grad_out, lanes, l, checkpoints, steps, adj, terms, ts, seg, n,
+      max_iterations, tex_opacity_min, show_disk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The live lanes' rows.
+extern "C" int bhx_euler_adjoint_finish(const float* rays, const float* params,
+                                        const int* lanes, int64_t l, const float* adj,
+                                        float* grad_rays, float* partials, int64_t n,
+                                        cudaStream_t stream) {
+  if (l <= 0) return static_cast<int>(l < 0 ? cudaErrorInvalidValue : cudaSuccess);
+  euler_adjoint_finish_kernel<<<adj_blocks(l), kAdjBlock, 0, stream>>>(
+      rays, params, lanes, l, adj, grad_rays, partials, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mass and disk-normal cotangents of steps substeps' sums into gp.
+extern "C" int bhx_euler_adjoint_accumulate(const float* sums, int steps, int show_disk,
+                                            float* gp, cudaStream_t stream) {
+  euler_adjoint_accumulate_kernel<<<1, 32, 0, stream>>>(sums, steps, show_disk, gp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The black hole's position cotangent from the (3, n) per-lane terms.
+extern "C" int bhx_euler_adjoint_sum(const float* partials, float* grad_params, int64_t n,
+                                     cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(n < 0 ? cudaErrorInvalidValue : cudaSuccess);
+  euler_adjoint_sum_kernel<<<3, kSumBlock, 0, stream>>>(partials, grad_params, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* bhx_error_string(int code) {

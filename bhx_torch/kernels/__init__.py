@@ -6,9 +6,10 @@ interleaved record, and the mesh intersection (whose plain version is
 kernel name, in its module's ``launches`` dict; :func:`launch_counts`
 reads them all.  Each wrapper but the mesh's is a
 ``torch.autograd.Function`` whose backward replays the plain version under
-autograd; those replays are counted in the modules' ``replays`` dicts, by
-the same names (:func:`replay_counts`).  :func:`reset_launch_counts`
-zeroes both."""
+autograd (the march's on the card under Euler runs its adjoint kernel
+instead, whose launches ``march.adjoints`` counts); those backward passes
+are counted in the modules' ``replays`` dicts, by the same names
+(:func:`replay_counts`).  :func:`reset_launch_counts` zeroes them all."""
 
 from __future__ import annotations
 
@@ -38,8 +39,8 @@ def replay_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch and the replay counts."""
+    """Zero the launch, replay and adjoint counts."""
     for m in _MODULES:
-        for counts in (m.launches, m.replays):
+        for counts in (m.launches, m.replays, getattr(m, "adjoints", {})):
             for name in counts:
                 counts[name] = 0

@@ -45,6 +45,23 @@ SIGNATURES = {
     # zero), n, max_iterations, tex_opacity_min, show_disk, mode (0 Euler,
     # 1 RK45, 2 Kerr)
     "bhx_march": (_P, _P, _P, _P, _P, _I64, _I32, _F32, _I32, _I32),
+    # The Euler adjoint's steps (csrc/march.cu; kernels/march.py:euler_adjoint).
+    # rays, params, grad_out, grad_rays, partials, n, max_iterations
+    "bhx_euler_adjoint_dead": (_P, _P, _P, _P, _P, _I64, _I32),
+    # rays, params, grad_out, lanes, l, checkpoints, steps, adj, n,
+    # max_iterations, tex_opacity_min, show_disk
+    "bhx_euler_adjoint_checkpoint": (_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32, _F32,
+                                     _I32),
+    # rays, params, grad_out, lanes, l, checkpoints, steps, adj, terms, ts,
+    # seg, n, max_iterations, tex_opacity_min, show_disk
+    "bhx_euler_adjoint_segment": (_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I64,
+                                  _I32, _F32, _I32),
+    # rays, params, lanes, l, adj, grad_rays, partials, n
+    "bhx_euler_adjoint_finish": (_P, _P, _P, _I64, _P, _P, _P, _I64),
+    # sums, steps, show_disk, gp
+    "bhx_euler_adjoint_accumulate": (_P, _I32, _I32, _P),
+    # partials, grad_params, n
+    "bhx_euler_adjoint_sum": (_P, _P, _I64),
     # slots, cam_dist, params, gain, gain_h, gain_w, tint, out, n,
     # show_texture, show_redshift
     "bhx_composite": (_P, _P, _P, _P, _I32, _I32, _P, _P, _I64, _I32, _I32),

@@ -16,6 +16,11 @@ crossings in order, then under Kerr the final momentum qx qy qz.
 Lanes that enter inactive come back unchanged: pos, dir, h, amount (and
 momentum) equal their inputs; steps, horizon, exited, count and slots
 are 0.
+
+The backward pass (:func:`march_backward`) is :func:`march_replay`, the
+plain substeps replayed under autograd, except for CUDA tensors under the
+Euler branch, which take the hand-written adjoint kernel
+(:func:`euler_adjoint`, ``csrc/march.cu``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from bhx_torch.integrate import (
     B1, B3, B4, B6, E1, E3, E4, E5, E6,
 )
 from bhx_torch.kernels import build
-from bhx_torch.profiling import REPLAY_MARCH, span
+from bhx_torch.profiling import REPLAY_MARCH, count_march_backward, span
 from bhx_torch.scene import const
 
 IN_FIELDS = 10  # px, py, pz, dx, dy, dz, h, active, amount, steps_done
@@ -66,8 +71,12 @@ _EULER, _RK45, _KERR = range(3)
 KERNEL_NAMES = ("march", "march_rk45", "march_kerr")
 
 launches = dict.fromkeys(KERNEL_NAMES, 0)
-# Backward replays (:func:`march_replay` calls), by the same names.
+# Backward passes (:func:`march_replay` and :func:`euler_adjoint` calls),
+# by the same names.
 replays = dict.fromkeys(KERNEL_NAMES, 0)
+# Launches of the Euler adjoint kernel (:func:`euler_adjoint`), under the
+# forward's name.
+adjoints = dict.fromkeys(KERNEL_NAMES[:1], 0)
 
 # Substeps between the all-done tests, and in each checkpointed segment of
 # the backward replay (the reference's 32-step leaf, march_grad.py:68-70).
@@ -79,6 +88,16 @@ SEGMENT_STEPS = 32
 # the card (32-step segment pulled back, plus the segment checkpoints)
 # and takes half the time of two chunks, which peak at ~10 GB.
 REPLAY_CHUNK_RAYS = 1 << 21
+# The Euler adjoint kernel's scratch for each live lane: a checkpoint of
+# CHECKPOINT_FIELDS floats every SEGMENT_STEPS substeps and ADJOINT_STATE
+# floats of cotangent; and each substep's ADJOINT_TERMS per-lane terms of
+# mass and the disk normal, in rows of a multiple of TERMS_ALIGN floats, so
+# that each row starts where a fresh tensor does (torch's reduction reads
+# an unaligned head apart, in another order).
+CHECKPOINT_FIELDS = 8
+ADJOINT_STATE = 12
+ADJOINT_TERMS = 7
+TERMS_ALIGN = 128
 
 
 def in_fields(geodesics: str = "pseudo") -> int:
@@ -445,6 +464,7 @@ def march_replay(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tenso
     mode = _mode(integrator, geodesics)
     with span(REPLAY_MARCH):
         replays[KERNEL_NAMES[mode]] += 1
+        count_march_backward(adjoint=False)
         rays, params = rays.detach(), params.detach().requires_grad_()
         live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]])  # active, steps_done
         grad_rays = torch.zeros_like(rays)
@@ -466,6 +486,92 @@ def march_replay(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tenso
             if gp is not None:
                 grad_params += gp
         return grad_rays, grad_params
+
+
+def euler_adjoint(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tensor, *,
+                  max_iterations: int, tex_opacity_min: float = 0.7,
+                  show_disk: bool = True):
+    """:func:`march_replay` of the Euler branch for CUDA tensors, by the
+    adjoint kernel (``csrc/march.cu``, ``euler_adjoint_kernel``): equal to
+    the replay bit for bit in every ray row and in the mass and disk-normal
+    cotangents (the black hole's position to rounding), and the same bits
+    from call to call.  The live lanes go in the replay's chunks; in each,
+    one launch marches them and keeps their checkpoints, then one launch a
+    segment, from the last, pulls the cotangent back, and each substep's
+    per-lane mass and normal terms are summed by torch's reduction and
+    added in autograd's order.  ``grad_out`` is the (out_fields(), N)
+    cotangent."""
+    with span(REPLAY_MARCH):
+        replays[KERNEL_NAMES[_EULER]] += 1
+        count_march_backward(adjoint=True)
+        build.check_rows(rays, IN_FIELDS, "rays")
+        build.check_vector(params, NUM_PARAMS, rays.device, "params")
+        n = rays.shape[1]
+        grad_out = grad_out.contiguous()
+        build.check_rows(grad_out, out_fields(), "grad_out")
+        if grad_out.shape[1] != n:
+            raise ValueError(f"grad_out: expected {n} lanes, got {grad_out.shape[1]}")
+        if n >= 2 ** 31:
+            raise ValueError(f"rays: at most 2^31 - 1 lanes, got {n}")
+        grad_rays = torch.empty_like(rays)
+        grad_params = torch.zeros_like(params)
+        if not n:
+            return grad_rays, grad_params
+        dev, f32 = rays.device, torch.float32
+        its = int(max_iterations)
+        kw = (its, float(tex_opacity_min), int(show_disk))
+        # The black hole's position terms of each lane.
+        partials = torch.empty((3, n), dtype=f32, device=dev)
+        build.launch("bhx_euler_adjoint_dead", rays, params, grad_out, grad_rays, partials,
+                     n, its)
+        live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]]) & (its > 0)
+        for lanes in live.nonzero()[:, 0].to(torch.int32).split(REPLAY_CHUNK_RAYS):
+            m = len(lanes)
+            if not m:
+                continue
+            segments = -(-its // SEGMENT_STEPS)
+            checkpoints = torch.empty((segments * CHECKPOINT_FIELDS * m,), dtype=f32, device=dev)
+            steps = torch.empty((m,), dtype=torch.int32, device=dev)
+            adj = torch.empty((ADJOINT_STATE, m), dtype=f32, device=dev)
+            build.launch("bhx_euler_adjoint_checkpoint", rays, params, grad_out, lanes, m,
+                         checkpoints, steps, adj, n, *kw)
+            # The substeps to pull back (a host sync, as nonzero is).
+            total = int(steps.max())
+            stride = -(-m // TERMS_ALIGN) * TERMS_ALIGN
+            terms = torch.empty((SEGMENT_STEPS, ADJOINT_TERMS, stride), dtype=f32, device=dev)
+            sums = torch.empty((total, ADJOINT_TERMS), dtype=f32, device=dev)
+            for seg in reversed(range(-(-total // SEGMENT_STEPS))):
+                build.launch("bhx_euler_adjoint_segment", rays, params, grad_out, lanes, m,
+                             checkpoints, steps, adj, terms, stride, seg, n, *kw)
+                first = seg * SEGMENT_STEPS
+                for j in range(min(SEGMENT_STEPS, total - first)):
+                    for u in range(ADJOINT_TERMS):
+                        # As autograd reduces a broadcast scalar's cotangent.
+                        torch.sum(terms[j, u, :m], (0,), keepdim=True,
+                                  out=sums[first + j, u:u + 1])
+            build.launch("bhx_euler_adjoint_finish", rays, params, lanes, m, adj, grad_rays,
+                         partials, n)
+            chunk = torch.zeros_like(params)
+            build.launch("bhx_euler_adjoint_accumulate", sums, total, int(show_disk), chunk)
+            grad_params += chunk
+        build.launch("bhx_euler_adjoint_sum", partials, grad_params, n)
+        adjoints[KERNEL_NAMES[_EULER]] += 1
+        return grad_rays, grad_params
+
+
+def march_backward(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tensor, *,
+                   max_iterations: int, tex_opacity_min: float = 0.7,
+                   show_disk: bool = True, integrator: str = "euler",
+                   geodesics: str = "pseudo"):
+    """The march's vector-Jacobian product: :func:`euler_adjoint` for CUDA
+    tensors under the Euler branch, :func:`march_replay` for CPU tensors
+    and for the RK45 and Kerr branches."""
+    if rays.device.type == "cuda" and _mode(integrator, geodesics) == _EULER:
+        return euler_adjoint(rays, params, grad_out, max_iterations=max_iterations,
+                             tex_opacity_min=tex_opacity_min, show_disk=show_disk)
+    return march_replay(rays, params, grad_out, max_iterations=max_iterations,
+                        tex_opacity_min=tex_opacity_min, show_disk=show_disk,
+                        integrator=integrator, geodesics=geodesics)
 
 
 def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
@@ -499,7 +605,7 @@ def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: 
 
 
 class _March(torch.autograd.Function):
-    """The march with :func:`march_replay` as its backward
+    """The march with :func:`march_backward` as its backward
     (``march_grad.march_pallas_diff``): the forward saves only its inputs."""
 
     @staticmethod
@@ -511,7 +617,7 @@ class _March(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        return (*march_replay(*ctx.saved_tensors, grad_out, **ctx.kw), None)
+        return (*march_backward(*ctx.saved_tensors, grad_out, **ctx.kw), None)
 
 
 def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
@@ -521,7 +627,7 @@ def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
     (``csrc/march.cu``, the instantiation of ``integrator`` and
     ``geodesics``) for CUDA tensors.  ``rays`` is (in_fields(geodesics), N).
     Differentiable in ``rays`` and ``params``: the backward is
-    :func:`march_replay`, on either device."""
+    :func:`march_backward`."""
     kw = dict(max_iterations=max_iterations, tex_opacity_min=tex_opacity_min,
               show_disk=show_disk, integrator=integrator, geodesics=geodesics)
     return _March.apply(rays, params, kw)

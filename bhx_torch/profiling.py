@@ -19,7 +19,9 @@ int64 sums, allocated once a device, with no host sync (a sum written in
 place: the reduction and its cast, no add); :func:`counts` reads the
 totals (the only sync) and :func:`reset_counts` zeroes them.  Beside
 them :data:`CALLS` and :data:`GRAPH_REPLAYS` count the tracer's calls and
-those of them that replayed a CUDA graph (``bhx_torch.graphs``), also only
+those of them that replayed a CUDA graph (``bhx_torch.graphs``), and
+:data:`MARCH_BACKWARDS` and :data:`MARCH_ADJOINTS` the march's backward
+passes and those of them that ran the Euler adjoint kernel, also only
 while a profiler records.
 """
 
@@ -90,6 +92,10 @@ ACTIVE_LANES = "trace.active_lanes"
 # The tracer's calls, and those that replayed a CUDA graph.
 CALLS = "trace.calls"
 GRAPH_REPLAYS = "trace.graph_replays"
+# The march's backward passes (``kernels.march``: ``march_replay`` or
+# ``euler_adjoint``), and those that ran the adjoint kernel.
+MARCH_BACKWARDS = "replay.march_calls"
+MARCH_ADJOINTS = "replay.march_adjoints"
 
 _OFF = contextlib.nullcontext()
 _LEVELS = tuple(f"{LADDER}.L{k}" for k in range(8))
@@ -120,6 +126,8 @@ _lanes = 0
 _active_host = 0
 _calls = 0
 _graph_replays = 0
+_march_backwards = 0
+_march_adjoints = 0
 # device -> [ring of int64 sums, next slot]
 _active_device: Dict[torch.device, list] = {}
 
@@ -156,16 +164,26 @@ def count_call(replayed: bool) -> None:
         _graph_replays += replayed
 
 
+def count_march_backward(adjoint: bool) -> None:
+    """Count a backward pass of the march, and whether it ran the adjoint
+    kernel, while a profiler records."""
+    global _march_backwards, _march_adjoints
+    if _autograd_profiler._is_profiler_enabled:
+        _march_backwards += 1
+        _march_adjoints += adjoint
+
+
 def counts() -> Dict[str, int]:
     """The counters' totals since the last :func:`reset_counts`."""
     live = _active_host + sum(int(ring.sum()) for ring, _ in _active_device.values())
-    return {LANES: _lanes, ACTIVE_LANES: live, CALLS: _calls, GRAPH_REPLAYS: _graph_replays}
+    return {LANES: _lanes, ACTIVE_LANES: live, CALLS: _calls, GRAPH_REPLAYS: _graph_replays,
+            MARCH_BACKWARDS: _march_backwards, MARCH_ADJOINTS: _march_adjoints}
 
 
 def reset_counts() -> None:
     """Zero the counters."""
-    global _lanes, _active_host, _calls, _graph_replays
-    _lanes = _active_host = _calls = _graph_replays = 0
+    global _lanes, _active_host, _calls, _graph_replays, _march_backwards, _march_adjoints
+    _lanes = _active_host = _calls = _graph_replays = _march_backwards = _march_adjoints = 0
     for entry in _active_device.values():
         entry[0].zero_()
         entry[1] = 0

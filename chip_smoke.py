@@ -60,9 +60,16 @@ Phases, each printed as it finishes:
    no ladder, no bloom or FXAA, tonemap, 400 iterations, Euler, Adam at
    lr 1e-2) without the star sky: 3 steps from the default scene (mass 0.5) toward the port's
    own render at mass 0.6, each step timed with CUDA events, with its
-   peak memory and its launches and replays; gated on finite, falling
-   losses, the mass moving toward 0.6, and the march, composite and sky
-   kernels launched and the march replayed in every step;
+   peak memory and its launches, replays and adjoint launches; gated on
+   finite, falling losses, the mass moving toward 0.6, the march,
+   composite and sky kernels launched and the march pulled back by the
+   Euler adjoint kernel in every step;
+6d. the Euler adjoint kernel at the fit's shape (2,073,358 lanes of
+   6c's frame, 400 iterations, a seeded random cotangent on all 41 rows)
+   against ``march_replay`` (``checks.compare_march_adjoint``): the ray
+   rows, mass and disk normal bit-identical, the black hole's position to
+   1e-3, two calls bit-equal (``grad_ok``), the kernel's ms (CUDA events,
+   5 calls), the replay's, the live lanes' substeps and the bound;
 7. meshes: the viewer's 12-triangle cube (brute-force branch of the mesh
    kernel M1) and a 524,288-triangle torus generated from seed 0, written
    to an OBJ file and loaded through ``make_mesh`` (the C++ parser and BVH
@@ -208,6 +215,7 @@ def main() -> int:
     from bhx_torch.kernels import mesh as mesh_mod
     from bhx_torch.kernels import shade, sky
     from bhx_torch.geometry import bvh, obj
+    from bhx_torch.kernels import march as march_mod
     from bhx_torch.kernels.march import OUT_FIXED, SLOT_ROWS, march
     import torch.distributed as dist
 
@@ -430,7 +438,8 @@ def main() -> int:
         end.synchronize()
         steps.append(dict(step=i, loss=loss, s=marks[-1].elapsed_time(end) / 1e3,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                          launches=launch_counts(), replays=replay_counts()))
+                          launches=launch_counts(), replays=replay_counts(),
+                          adjoints=dict(march_mod.adjoints)))
         print(f"fit step {i}: {json.dumps(steps[-1])}", flush=True)
         marks.append(end)
         torch.cuda.reset_peak_memory_stats()
@@ -444,9 +453,19 @@ def main() -> int:
     check("fit_scene 1918x1081 3 steps",
           all(np.isfinite(losses)) and losses[-1] < losses[0] and 0.5 < mass < 0.6
           and all(st["launches"][k] > 0 for st in steps for k in path)
-          and all(st["replays"]["march"] > 0 for st in steps),
+          and all(st["replays"]["march"] > 0 and st["adjoints"]["march"] > 0
+                  for st in steps),
           dict(losses=losses, mass=mass, s_per_step=[st["s"] for st in steps],
                peak_mem_gb=max(st["peak_mem_gb"] for st in steps)))
+
+    # --- 6d. the Euler adjoint at the fit's shape ---
+    rays, params, _ = march_batch(scene, fit_cfg, fit_cfg.width, fit_cfg.height)
+    cot = torch.randn((march_mod.out_fields(), rays.shape[1]), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    adjoint_r = checks.compare_march_adjoint(rays, params, cot, fit_cfg, reps=5)
+    adjoint_r["grad_ok"] = adjoint_r["ok"]
+    check("euler_adjoint 1918x1081 fit", adjoint_r["ok"], adjoint_r)
+    del rays, params, cot
 
     # --- 7. meshes: the cube and a 524,288-triangle torus ---
     cube = obj.make_mesh(cube_arrays(), position=(6.0, 0.0, -30.0), name="cube",
@@ -988,6 +1007,17 @@ def main() -> int:
                                                       "bound_ms", "bound_by")}
                 for branch, name in (("bvh", "torus"), ("brute", "cube"))}),
     ]
+    # No Pallas counterpart either: the march's backward, launched once a
+    # march round in each of 6c's fit steps.
+    kernels.append(dict(
+        name="euler_adjoint", route="cuda", source="bhx_torch/csrc/march.cu",
+        replaces="bhx/kernels/march_grad.py:_march_bwd (jax.vjp of march_jnp under remat; "
+                 "no pallas_call)",
+        launches=sum(st["adjoints"]["march"] for st in steps), launches_per_frame=0,
+        **{k: adjoint_r[k] for k in ("max_abs_err", "diff_frac", "param_err", "bh_rel_err",
+                                     "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "bound_ceiling")},
+        library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

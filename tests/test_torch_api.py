@@ -387,7 +387,8 @@ def test_frame_report_keys(tmp_path):
     """``profile_trace`` writes the block's trace, which holds the render's
     span, and its counters beside it."""
     from bhx_torch.profiling import (
-        ACTIVE_LANES, CALLS, GRAPH_REPLAYS, LANES, RENDER, profile_trace,
+        ACTIVE_LANES, CALLS, GRAPH_REPLAYS, LANES, MARCH_ADJOINTS, MARCH_BACKWARDS, RENDER,
+        profile_trace,
     )
 
     _, tscene = _scenes()
@@ -400,7 +401,9 @@ def test_frame_report_keys(tmp_path):
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert RENDER in {e.get("name") for e in trace["traceEvents"]}
     counts = json.loads((tmp_path / "trace" / "counts.json").read_text())
-    assert set(counts) == {LANES, ACTIVE_LANES, CALLS, GRAPH_REPLAYS}
+    assert set(counts) == {LANES, ACTIVE_LANES, CALLS, GRAPH_REPLAYS, MARCH_BACKWARDS,
+                           MARCH_ADJOINTS}
+    assert counts[MARCH_BACKWARDS] == counts[MARCH_ADJOINTS] == 0
     # Level 0 traces 12x7 lanes, all live, and level 1 34x19, some live;
     # on the host no trace replays a graph.
     assert counts[LANES] == 12 * 7 + 34 * 19

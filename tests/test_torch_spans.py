@@ -41,10 +41,12 @@ def _spans(fn):
     return out, sorted(spans, key=lambda s: s[1])
 
 
-def _counts(lanes, active, calls=0, replays=0):
-    """``profiling.counts()`` as it should read."""
+def _counts(lanes, active, calls=0, replays=0, march_backwards=0):
+    """``profiling.counts()`` as it should read (on the CPU no march
+    backward runs the adjoint kernel)."""
     return {profiling.LANES: lanes, profiling.ACTIVE_LANES: active, profiling.CALLS: calls,
-            profiling.GRAPH_REPLAYS: replays}
+            profiling.GRAPH_REPLAYS: replays, profiling.MARCH_BACKWARDS: march_backwards,
+            profiling.MARCH_ADJOINTS: 0}
 
 
 def _named(spans, name):
@@ -174,8 +176,13 @@ def test_train_step_records_its_parts_and_the_replays():
               for k, v in parallel.scene_params(scene).items()}
     optimizer = parallel.make_optimizer(params)
     target = torch.zeros((9, 16, 3))
+    profiling.reset_counts()
     loss, spans = _spans(lambda: parallel.train_step(params, optimizer, scene, target, cfg))
+    counts = profiling.counts()
+    profiling.reset_counts()
     assert torch.isfinite(loss)
+    # Two march rounds, each pulled back once, by the replay on the CPU.
+    assert (counts[profiling.MARCH_BACKWARDS], counts[profiling.MARCH_ADJOINTS]) == (2, 0)
     names = {s[0] for s in spans}
     assert {profiling.STEP_FORWARD, profiling.STEP_BACKWARD, profiling.STEP_OPTIMIZER,
             profiling.REPLAY_MARCH, profiling.REPLAY_COMPOSITE} <= names
