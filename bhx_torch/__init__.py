@@ -35,9 +35,9 @@ for Hopper (``bhx_torch/csrc``):
 
 Tensors on the CPU take each kernel's plain torch version; CUDA tensors
 launch the kernel, which is built with nvcc on first use.  ``render`` is
-differentiable: each kernel call is a ``torch.autograd.Function`` whose
-backward replays the kernel's plain version under autograd (mesh hits
-carry no gradient).
+differentiable: each kernel call runs through one
+``torch.autograd.Function`` (``kernels.entries``) whose backward replays
+the kernel's plain version under autograd (mesh hits carry no gradient).
 """
 
 import torch

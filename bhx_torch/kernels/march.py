@@ -20,13 +20,13 @@ are 0.
 The backward pass (:func:`march_backward`) is :func:`march_replay`, the
 plain substeps replayed under autograd, except for CUDA tensors under the
 Euler branch, which take the hand-written adjoint kernel
-(:func:`euler_adjoint`, ``csrc/march.cu``).
+(:func:`euler_adjoint`, ``csrc/march.cu``).  Launches, backward passes and
+adjoint calls are counted in ``entries``, under the branch's kernel name.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from bhx_torch import kerr
@@ -34,7 +34,7 @@ from bhx_torch.integrate import (
     A21, A31, A32, A41, A42, A43, A51, A52, A53, A54, A61, A62, A63, A64, A65,
     B1, B3, B4, B6, E1, E3, E4, E5, E6,
 )
-from bhx_torch.kernels import build
+from bhx_torch.kernels import build, entries
 from bhx_torch.profiling import REPLAY_MARCH, count_march_backward, span
 from bhx_torch.scene import const
 
@@ -66,17 +66,11 @@ MAX_CROSSINGS = 4
 SLOT_ROWS = CROSS_FIELDS * MAX_CROSSINGS
 
 # The kernel's branches (its template instantiations), and the name each
-# one's launches are counted under.
+# one's launches and backward passes are counted under.
 _EULER, _RK45, _KERR = range(3)
 KERNEL_NAMES = ("march", "march_rk45", "march_kerr")
-
-launches = dict.fromkeys(KERNEL_NAMES, 0)
-# Backward passes (:func:`march_replay` and :func:`euler_adjoint` calls),
-# by the same names.
-replays = dict.fromkeys(KERNEL_NAMES, 0)
-# Launches of the Euler adjoint kernel (:func:`euler_adjoint`), under the
-# forward's name.
-adjoints = dict.fromkeys(KERNEL_NAMES[:1], 0)
+entries.declare(KERNEL_NAMES, entries.LAUNCH, entries.REPLAY)
+entries.declare(KERNEL_NAMES[:1], entries.ADJOINT)
 
 # Substeps between the all-done tests, and in each checkpointed segment of
 # the backward replay (the reference's 32-step leaf, march_grad.py:68-70).
@@ -463,7 +457,7 @@ def march_replay(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tenso
     is the kernel's with no step-count rounding."""
     mode = _mode(integrator, geodesics)
     with span(REPLAY_MARCH):
-        replays[KERNEL_NAMES[mode]] += 1
+        entries.count(entries.REPLAY, KERNEL_NAMES[mode])
         count_march_backward(adjoint=False)
         rays, params = rays.detach(), params.detach().requires_grad_()
         live = (rays[7] > 0.5) & (rays[9] < params[_P["budget"]])  # active, steps_done
@@ -502,7 +496,7 @@ def euler_adjoint(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tens
     added in autograd's order.  ``grad_out`` is the (out_fields(), N)
     cotangent."""
     with span(REPLAY_MARCH):
-        replays[KERNEL_NAMES[_EULER]] += 1
+        entries.count(entries.REPLAY, KERNEL_NAMES[_EULER])
         count_march_backward(adjoint=True)
         build.check_rows(rays, IN_FIELDS, "rays")
         build.check_vector(params, NUM_PARAMS, rays.device, "params")
@@ -555,7 +549,7 @@ def euler_adjoint(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Tens
             build.launch("bhx_euler_adjoint_accumulate", sums, total, int(show_disk), chunk)
             grad_params += chunk
         build.launch("bhx_euler_adjoint_sum", partials, grad_params, n)
-        adjoints[KERNEL_NAMES[_EULER]] += 1
+        entries.count(entries.ADJOINT, KERNEL_NAMES[_EULER])
         return grad_rays, grad_params
 
 
@@ -574,14 +568,10 @@ def march_backward(rays: torch.Tensor, params: torch.Tensor, grad_out: torch.Ten
                         integrator=integrator, geodesics=geodesics)
 
 
-def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
-                   tex_opacity_min: float, show_disk: bool, integrator: str,
-                   geodesics: str) -> torch.Tensor:
-    """The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if rays.device.type == "cpu":
-        return march_torch(rays, params, max_iterations=max_iterations,
-                           tex_opacity_min=tex_opacity_min, show_disk=show_disk,
-                           integrator=integrator, geodesics=geodesics)
+def _march_cuda(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
+                tex_opacity_min: float, show_disk: bool, integrator: str,
+                geodesics: str) -> torch.Tensor:
+    """The CUDA kernel's launch."""
     mode = _mode(integrator, geodesics)
     build.check_rows(rays, in_fields(geodesics), "rays")
     build.check_vector(params, NUM_PARAMS, rays.device, "params")
@@ -600,24 +590,13 @@ def _march_forward(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: 
             "bhx_march", rays, params, out, queue, counters, n, int(max_iterations),
             float(tex_opacity_min), int(show_disk), mode,
         )
-        launches[KERNEL_NAMES[mode]] += 1
+        entries.count(entries.LAUNCH, KERNEL_NAMES[mode])
     return out
 
 
-class _March(torch.autograd.Function):
-    """The march with :func:`march_backward` as its backward
-    (``march_grad.march_pallas_diff``): the forward saves only its inputs."""
-
-    @staticmethod
-    def forward(ctx, rays, params, kw):
-        ctx.kw = kw
-        ctx.save_for_backward(rays, params)
-        return _march_forward(rays, params, **kw)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return (*march_backward(*ctx.saved_tensors, grad_out, **ctx.kw), None)
+# The march with :func:`march_backward` as its backward
+# (``march_grad.march_pallas_diff``).
+_MARCH = entries.Entry(march_torch, _march_cuda, march_backward)
 
 
 def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
@@ -628,6 +607,6 @@ def march(rays: torch.Tensor, params: torch.Tensor, *, max_iterations: int,
     ``geodesics``) for CUDA tensors.  ``rays`` is (in_fields(geodesics), N).
     Differentiable in ``rays`` and ``params``: the backward is
     :func:`march_backward`."""
-    kw = dict(max_iterations=max_iterations, tex_opacity_min=tex_opacity_min,
-              show_disk=show_disk, integrator=integrator, geodesics=geodesics)
-    return _March.apply(rays, params, kw)
+    return _MARCH(rays, params, max_iterations=max_iterations,
+                  tex_opacity_min=tex_opacity_min, show_disk=show_disk,
+                  integrator=integrator, geodesics=geodesics)

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from bhx_torch.geometry.intersect import MISS_T, diffuse_light
-from bhx_torch.kernels import build
+from bhx_torch.kernels import build, entries
 from bhx_torch.scene import MESH_INDEX_FIELDS
 
 BRUTE_FORCE_THRESHOLD = 512
@@ -36,9 +36,8 @@ OUT_ROWS = 8
 # the last launch), last.
 _MERGE, _LAST = 1, 2
 
-launches = {"mesh": 0}
-# No backward, so nothing replays.
-replays: Dict[str, int] = {}
+# No backward, so only launches are counted.
+entries.declare(("mesh",), entries.LAUNCH)
 
 _FLOAT_FIELDS = ("points", "normals", "node_min", "node_max", "position")
 _RAY_ROWS = ("px", "py", "pz", "dx", "dy", "dz")
@@ -188,7 +187,7 @@ def intersect_meshes_cuda(origin: Sequence[torch.Tensor], direction: Sequence[to
             build.launch("bhx_mesh", ray_args, active, queue, counters, g,
                          (ctypes.c_int64 * len(fields))(*fields), len(group), light, out, n,
                          flags)
-            launches["mesh"] += 1
+            entries.count(entries.LAUNCH, "mesh")
     return dict(t=out[0], hit=out[1] > 0.5, color=out[2:5].t(), normal=out[5:8].t())
 
 

@@ -18,9 +18,8 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from bhx_torch.kernels import build
+from bhx_torch.kernels import build, entries
 from bhx_torch.kernels.march import CROSS_FIELDS, MAX_CROSSINGS
 from bhx_torch.procedural import blackbody_tint_channels, disk_texel_m, _tint_coeffs
 from bhx_torch.profiling import REPLAY_COMPOSITE, REPLAY_INGREDIENTS, span
@@ -36,9 +35,7 @@ NUM_SHADE_PARAMS = len(_SP)
 SLOT_ROWS = MAX_CROSSINGS * CROSS_FIELDS
 ING_FIELDS = 7  # od, m, tint_r, tint_g, tint_b, u, v
 
-launches = {"composite": 0, "ingredients": 0}
-# Backward replays, by the same names.
-replays = dict.fromkeys(launches, 0)
+entries.declare(("composite", "ingredients"), entries.LAUNCH, entries.REPLAY)
 
 
 def pack_shade_params(black_hole, rot_mat: torch.Tensor, time) -> torch.Tensor:
@@ -154,35 +151,19 @@ def _composite_rows(slots, cam_dist, params, gain, show_texture: bool,
     return torch.stack(acc + [trans])
 
 
-def _replay(counter: str, fn, inputs, grad_out, *args):
-    """The cotangents of ``inputs`` for the cotangent ``grad_out`` of
-    ``fn(*inputs, *args)``, by autograd through that plain math (the
-    reference's recompute-adjoint backward rules, shade_pallas.py:300-305,
-    551-563)."""
-    replays[counter] += 1
-    inputs = [t.detach().requires_grad_() for t in inputs]
-    with torch.enable_grad():
-        grads = torch.autograd.grad(fn(*inputs, *args), inputs, grad_out,
-                                    allow_unused=True)
-    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads))
-
-
 def composite_replay(slots, cam_dist, params, gain, grad_out, *, show_texture: bool = True,
                      show_redshift: bool = True):
     """The composite's vector-Jacobian product: the cotangents of
     ``(slots, cam_dist, params, gain)`` for the cotangent ``grad_out`` of
     its (4, N) output, by replaying the plain shade + composite."""
     with span(REPLAY_COMPOSITE):
-        return _replay("composite", _composite_rows, (slots, cam_dist, params, gain),
-                       grad_out, show_texture, show_redshift)
+        return entries.replay("composite", _composite_rows, (slots, cam_dist, params, gain),
+                              grad_out, show_texture=show_texture,
+                              show_redshift=show_redshift)
 
 
-def _composite_forward(slots, cam_dist, params, gain, show_texture: bool,
-                       show_redshift: bool) -> torch.Tensor:
-    if slots.device.type == "cpu":
-        return composite_torch(slots, cam_dist, params, gain,
-                               show_texture=show_texture,
-                               show_redshift=show_redshift)
+def _composite_cuda(slots, cam_dist, params, gain, *, show_texture: bool,
+                    show_redshift: bool) -> torch.Tensor:
     n = slots.shape[1]
     build.check_rows(slots, SLOT_ROWS, "slots")
     build.check_vector(cam_dist, n, slots.device, "cam_dist")
@@ -199,28 +180,13 @@ def _composite_forward(slots, cam_dist, params, gain, show_texture: bool,
             int(gain.shape[0]), int(gain.shape[1]), tint_table(slots.device),
             out, n, int(show_texture), int(show_redshift),
         )
-        launches["composite"] += 1
+        entries.count(entries.LAUNCH, "composite")
     return out
 
 
-class _Composite(torch.autograd.Function):
-    """The composite with :func:`composite_replay` as its backward
-    (``shade_pallas.shade_composite``)."""
-
-    @staticmethod
-    def forward(ctx, slots, cam_dist, params, gain, show_texture, show_redshift):
-        ctx.flags = (show_texture, show_redshift)
-        ctx.save_for_backward(slots, cam_dist, params, gain)
-        return _composite_forward(slots, cam_dist, params, gain, show_texture,
-                                  show_redshift)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        show_texture, show_redshift = ctx.flags
-        grads = composite_replay(*ctx.saved_tensors, grad_out, show_texture=show_texture,
-                                 show_redshift=show_redshift)
-        return (*grads, None, None)
+# The composite with :func:`composite_replay` as its backward
+# (``shade_pallas.shade_composite``).
+_COMPOSITE = entries.Entry(composite_torch, _composite_cuda, composite_replay)
 
 
 def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
@@ -230,7 +196,8 @@ def composite(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
     (``csrc/shade.cu``) for CUDA tensors.  ``slots`` is (SLOT_ROWS, N).
     Differentiable in every tensor argument: the backward is
     :func:`composite_replay`, on either device."""
-    return _Composite.apply(slots, cam_dist, params, gain, show_texture, show_redshift)
+    return _COMPOSITE(slots, cam_dist, params, gain, show_texture=show_texture,
+                      show_redshift=show_redshift)
 
 
 def ingredients_torch(slots, cam_dist: torch.Tensor, params: torch.Tensor, *,
@@ -259,15 +226,13 @@ def ingredients_replay(slots, cam_dist, params, grad_out, *, show_texture: bool 
     ``(slots, cam_dist, params)`` for the cotangent ``grad_out`` of the
     (K*7, N) output, by replaying the plain ingredients."""
     with span(REPLAY_INGREDIENTS):
-        return _replay("ingredients", _ingredient_rows, (slots, cam_dist, params),
-                       grad_out, show_texture, show_redshift)
+        return entries.replay("ingredients", _ingredient_rows, (slots, cam_dist, params),
+                              grad_out, show_texture=show_texture,
+                              show_redshift=show_redshift)
 
 
-def _ingredients_forward(slots, cam_dist, params, show_texture: bool,
-                         show_redshift: bool) -> torch.Tensor:
-    if slots.device.type == "cpu":
-        return ingredients_torch(slots, cam_dist, params, show_texture=show_texture,
-                                 show_redshift=show_redshift)
+def _ingredients_cuda(slots, cam_dist, params, *, show_texture: bool,
+                      show_redshift: bool) -> torch.Tensor:
     n = slots.shape[1]
     build.check_rows(slots, SLOT_ROWS, "slots")
     build.check_vector(cam_dist, n, slots.device, "cam_dist")
@@ -279,27 +244,13 @@ def _ingredients_forward(slots, cam_dist, params, show_texture: bool,
             "bhx_ingredients", slots, cam_dist, params, tint_table(slots.device),
             out, n, int(show_texture), int(show_redshift),
         )
-        launches["ingredients"] += 1
+        entries.count(entries.LAUNCH, "ingredients")
     return out
 
 
-class _Ingredients(torch.autograd.Function):
-    """The ingredients with :func:`ingredients_replay` as its backward
-    (``shade_pallas.shade_ingredients``)."""
-
-    @staticmethod
-    def forward(ctx, slots, cam_dist, params, show_texture, show_redshift):
-        ctx.flags = (show_texture, show_redshift)
-        ctx.save_for_backward(slots, cam_dist, params)
-        return _ingredients_forward(slots, cam_dist, params, show_texture, show_redshift)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        show_texture, show_redshift = ctx.flags
-        grads = ingredients_replay(*ctx.saved_tensors, grad_out,
-                                   show_texture=show_texture, show_redshift=show_redshift)
-        return (*grads, None, None)
+# The ingredients with :func:`ingredients_replay` as their backward
+# (``shade_pallas.shade_ingredients``).
+_INGREDIENTS = entries.Entry(ingredients_torch, _ingredients_cuda, ingredients_replay)
 
 
 def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tensor,
@@ -309,4 +260,5 @@ def ingredients(slots: torch.Tensor, cam_dist: torch.Tensor, params: torch.Tenso
     CUDA kernel (``csrc/shade.cu``, its ingredients variant) for CUDA
     tensors.  ``slots`` is (SLOT_ROWS, N); the result (K*7, N).
     Differentiable: the backward is :func:`ingredients_replay`."""
-    return _Ingredients.apply(slots, cam_dist, params, show_texture, show_redshift)
+    return _INGREDIENTS(slots, cam_dist, params, show_texture=show_texture,
+                        show_redshift=show_redshift)

@@ -13,9 +13,8 @@ to the color.  ``sky_finalize`` does the same on an interleaved
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from bhx_torch.kernels import build
+from bhx_torch.kernels import build, entries
 from bhx_torch.kernels.shade import tint_table
 from bhx_torch.procedural import sky_radiance_channels
 from bhx_torch.profiling import REPLAY_SKY, REPLAY_SKY_FINALIZE, span
@@ -23,9 +22,7 @@ from bhx_torch.shading import sky_uv
 
 RECORD_ROWS = 8
 
-launches = {"sky": 0, "sky_finalize": 0}
-# Backward replays, by the same names.
-replays = dict.fromkeys(launches, 0)
+entries.declare(("sky", "sky_finalize"), entries.LAUNCH, entries.REPLAY)
 
 
 def sky_rows_torch(rows, show_sky: bool = True) -> torch.Tensor:
@@ -42,58 +39,34 @@ def _sky_rows(rows, show_sky: bool) -> torch.Tensor:
     return torch.stack([cr + w * sr, cg + w * sg, cb + w * sb])
 
 
-def _replay(counter: str, fn, x, grad_out, show_sky: bool) -> torch.Tensor:
-    """The cotangent of ``x`` for the cotangent ``grad_out`` of
-    ``fn(x, show_sky)``, by autograd through that plain math (the
-    reference's backward rules, shade_pallas.py:677-680, 765-768)."""
-    replays[counter] += 1
-    x = x.detach().requires_grad_()
-    with torch.enable_grad():
-        (g,) = torch.autograd.grad(fn(x, show_sky), x, grad_out)
-    return g
-
-
 def sky_rows_replay(rows, grad_out, show_sky: bool = True) -> torch.Tensor:
     """The sky's vector-Jacobian product: the cotangent of the (8, N)
     ``rows`` for the cotangent ``grad_out`` of its (3, N) output."""
     with span(REPLAY_SKY):
-        return _replay("sky", _sky_rows, rows, grad_out, show_sky)
+        return entries.replay("sky", _sky_rows, (rows,), grad_out, show_sky=show_sky)[0]
 
 
-def _sky_rows_forward(rows: torch.Tensor, show_sky: bool) -> torch.Tensor:
-    if rows.device.type == "cpu":
-        return sky_rows_torch(rows, show_sky)
+def _sky_rows_cuda(rows: torch.Tensor, *, show_sky: bool) -> torch.Tensor:
     build.check_rows(rows, RECORD_ROWS, "rows")
     n = rows.shape[1]
     out = torch.empty((3, n), dtype=torch.float32, device=rows.device)
     if n:
         build.launch("bhx_sky", rows, tint_table(rows.device), out, n,
                      int(show_sky))
-        launches["sky"] += 1
+        entries.count(entries.LAUNCH, "sky")
     return out
 
 
-class _SkyRows(torch.autograd.Function):
-    """The sky on record rows with :func:`sky_rows_replay` as its backward
-    (``shade_pallas.sky_finalize_rows``)."""
-
-    @staticmethod
-    def forward(ctx, rows, show_sky):
-        ctx.show_sky = show_sky
-        ctx.save_for_backward(rows)
-        return _sky_rows_forward(rows, show_sky)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return sky_rows_replay(*ctx.saved_tensors, grad_out, ctx.show_sky), None
+# The sky on record rows with :func:`sky_rows_replay` as its backward
+# (``shade_pallas.sky_finalize_rows``).
+_SKY_ROWS = entries.Entry(sky_rows_torch, _sky_rows_cuda, sky_rows_replay)
 
 
 def sky_rows(rows: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
     """Sky finalize: the plain version for CPU tensors, the CUDA kernel
     (``csrc/sky.cu``) for CUDA tensors.  ``rows`` is (8, N).
     Differentiable: the backward is :func:`sky_rows_replay`."""
-    return _SkyRows.apply(rows, show_sky)
+    return _SKY_ROWS(rows, show_sky=show_sky)
 
 
 def sky_finalize_torch(record: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
@@ -112,12 +85,11 @@ def sky_finalize_replay(record, grad_out, show_sky: bool = True) -> torch.Tensor
     (..., 8) ``record`` for the cotangent ``grad_out`` of its (..., 3)
     output."""
     with span(REPLAY_SKY_FINALIZE):
-        return _replay("sky_finalize", _sky_interleaved, record, grad_out, show_sky)
+        return entries.replay("sky_finalize", _sky_interleaved, (record,), grad_out,
+                              show_sky=show_sky)[0]
 
 
-def _sky_finalize_forward(record: torch.Tensor, show_sky: bool) -> torch.Tensor:
-    if record.device.type == "cpu":
-        return sky_finalize_torch(record, show_sky)
+def _sky_finalize_cuda(record: torch.Tensor, *, show_sky: bool) -> torch.Tensor:
     if (record.dtype != torch.float32 or record.dim() < 1
             or record.shape[-1] != RECORD_ROWS or not record.is_contiguous()):
         raise ValueError(
@@ -130,24 +102,13 @@ def _sky_finalize_forward(record: torch.Tensor, show_sky: bool) -> torch.Tensor:
     if n:
         build.launch("bhx_sky_finalize", record, tint_table(record.device), out, n,
                      int(show_sky))
-        launches["sky_finalize"] += 1
+        entries.count(entries.LAUNCH, "sky_finalize")
     return out
 
 
-class _SkyFinalize(torch.autograd.Function):
-    """The interleaved sky with :func:`sky_finalize_replay` as its backward
-    (``shade_pallas.sky_finalize``)."""
-
-    @staticmethod
-    def forward(ctx, record, show_sky):
-        ctx.show_sky = show_sky
-        ctx.save_for_backward(record)
-        return _sky_finalize_forward(record, show_sky)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        return sky_finalize_replay(*ctx.saved_tensors, grad_out, ctx.show_sky), None
+# The interleaved sky with :func:`sky_finalize_replay` as its backward
+# (``shade_pallas.sky_finalize``).
+_SKY_FINALIZE = entries.Entry(sky_finalize_torch, _sky_finalize_cuda, sky_finalize_replay)
 
 
 def sky_finalize(record: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
@@ -155,4 +116,4 @@ def sky_finalize(record: torch.Tensor, show_sky: bool = True) -> torch.Tensor:
     CPU tensors, the CUDA kernel (``csrc/sky.cu``, its interleaved variant)
     for CUDA tensors.  Differentiable: the backward is
     :func:`sky_finalize_replay`."""
-    return _SkyFinalize.apply(record, show_sky)
+    return _SKY_FINALIZE(record, show_sky=show_sky)

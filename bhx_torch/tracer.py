@@ -341,8 +341,7 @@ def _array_composite(slots: torch.Tensor, cam_dist: torch.Tensor, scene: Scene,
     reference's.  At 1918x1081 this beats shading all K x N slots and
     masking, as ``bhx`` does, despite its one host sync: 42-47 against
     62-65 ms a frame, 21-22 against 162 ms a texture-gradient step
-    (one H100; ``march_study --study array``, PERF.md).  Returns the (4, N) rows r,
-    g, b, transmission."""
+    (one H100, PERF.md).  Returns the (4, N) rows r, g, b, transmission."""
     bh = scene.black_hole
     cf, k_slots, n = CROSS_FIELDS, MAX_CROSSINGS, cam_dist.shape[0]
     rot_mat, _ = bh.disk_frame()

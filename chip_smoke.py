@@ -211,7 +211,8 @@ def main() -> int:
     from bhx_torch.bench import (compare_frames, frame_profile, grad_check, parity_check,
                                  parity_config, run_bench)
     from bhx_torch.config import BloomConfig, FxaaConfig, Integrator, RenderConfig
-    from bhx_torch.kernels import build, launch_counts, replay_counts, reset_launch_counts
+    from bhx_torch.kernels import (adjoint_counts, build, launch_counts, replay_counts,
+                                   reset_launch_counts)
     from bhx_torch.kernels import mesh as mesh_mod
     from bhx_torch.kernels import shade, sky
     from bhx_torch.geometry import bvh, obj
@@ -439,7 +440,7 @@ def main() -> int:
         steps.append(dict(step=i, loss=loss, s=marks[-1].elapsed_time(end) / 1e3,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           launches=launch_counts(), replays=replay_counts(),
-                          adjoints=dict(march_mod.adjoints)))
+                          adjoints=adjoint_counts()))
         print(f"fit step {i}: {json.dumps(steps[-1])}", flush=True)
         marks.append(end)
         torch.cuda.reset_peak_memory_stats()

@@ -254,9 +254,12 @@ def test_cuda_tensors_never_reach_plain_versions(frame, monkeypatch, requires_gr
     def boom(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    for mod, name in ((tmarch, "march_torch"), (tshade, "composite_torch"),
-                      (tsky, "sky_rows_torch")):
+    for mod, name, entry in ((tmarch, "march_torch", "_MARCH"),
+                             (tshade, "composite_torch", "_COMPOSITE"),
+                             (tsky, "sky_rows_torch", "_SKY_ROWS")):
         monkeypatch.setattr(mod, name, boom)
+        # The entry's dispatch holds the plain version it was made with.
+        monkeypatch.setattr(mod, entry, dataclasses.replace(getattr(mod, entry), plain=boom))
     if requires_grad:
         mass = scene.black_hole.mass.detach().clone().requires_grad_()
         scene = dataclasses.replace(scene, black_hole=dataclasses.replace(

@@ -212,13 +212,3 @@ def test_pack_params_rk_fields_and_spin_match_bhx():
     assert got[tmarch._P["rtol"]] == np.float32(3e-4)
     assert got[tmarch._P["spin"]] == np.float32(0.9)
 
-
-def test_march_wrapper_runs_plain_version_for_cpu_tensors():
-    rows, params = _setup()
-    before = tmarch.launches
-    got = tmarch.march(torch.from_numpy(rows[:, :64].copy()),
-                       torch.from_numpy(params), max_iterations=50)
-    want = tmarch.march_torch(torch.from_numpy(rows[:, :64].copy()),
-                              torch.from_numpy(params), max_iterations=50)
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert tmarch.launches == before

@@ -111,18 +111,6 @@ def test_pack_shade_params_matches_bhx():
     np.testing.assert_allclose(got, _params(), atol=1e-6, rtol=0)
 
 
-def test_composite_wrapper_runs_plain_version_for_cpu_tensors():
-    slots, cam = _slots(n=64)
-    args = (torch.from_numpy(slots), torch.from_numpy(cam),
-            torch.from_numpy(_params()), torch.ones((16, 16, 4)))
-    before = dict(tshade.launches)
-    torch.testing.assert_close(tshade.composite(*args), tshade.composite_torch(*args),
-                               atol=0, rtol=0)
-    torch.testing.assert_close(tshade.ingredients(*args[:3]),
-                               tshade.ingredients_torch(*args[:3]), atol=0, rtol=0)
-    assert tshade.launches == before
-
-
 @pytest.mark.parametrize("show_texture", [True, False])
 @pytest.mark.parametrize("show_redshift", [True, False])
 def test_ingredients_match_jnp(show_texture, show_redshift):
@@ -199,13 +187,3 @@ def test_sky_finalize_matches_jnp(show_sky):
     assert np.quantile(err, 0.995) < 2e-3
     assert err.max() < 0.2
 
-
-def test_sky_wrapper_runs_plain_version_for_cpu_tensors():
-    rec = torch.from_numpy(_record(n=64))
-    before = dict(tsky.launches)
-    torch.testing.assert_close(tsky.sky_rows(rec), tsky.sky_rows_torch(rec),
-                               atol=0, rtol=0)
-    interleaved = rec.t().contiguous()
-    torch.testing.assert_close(tsky.sky_finalize(interleaved),
-                               tsky.sky_finalize_torch(interleaved), atol=0, rtol=0)
-    assert tsky.launches == before

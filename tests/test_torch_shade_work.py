@@ -11,7 +11,7 @@ import torch
 
 from bhx_torch import checks
 from bhx_torch.config import RenderConfig
-from bhx_torch.kernels import shade
+from bhx_torch.kernels import launch_counts, shade
 from bhx_torch.kernels.march import CROSS_FIELDS, MAX_CROSSINGS, SLOT_ROWS
 
 
@@ -92,10 +92,10 @@ def test_shade_of_no_ray(show_texture, show_redshift):
     slots, cam = torch.zeros((SLOT_ROWS, 0)), torch.zeros((0,))
     params, gain = torch.zeros((shade.NUM_SHADE_PARAMS,)), torch.ones((16, 16, 4))
     flags = dict(show_texture=show_texture, show_redshift=show_redshift)
-    before = dict(shade.launches)
+    before = launch_counts()
     assert tuple(shade.composite(slots, cam, params, gain, **flags).shape) == (4, 0)
     assert tuple(shade.ingredients(slots, cam, params, **flags).shape) == (SLOT_ROWS, 0)
-    assert shade.launches == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("show_texture", [True, False])

@@ -19,7 +19,9 @@ import bhx_torch
 from bhx_torch import graphs, kernels, profiling, tracer
 from bhx_torch.kernels import mesh as mesh_kernel
 
-from tests.torch_mesh_data import cube_arrays, torus_arrays
+# tests/ is on sys.path under pytest (it has no __init__.py); a package
+# named ``tests`` elsewhere on the path would shadow ``tests.torch_mesh_data``.
+from torch_mesh_data import cube_arrays, torus_arrays
 
 torch.set_num_threads(2)
 
